@@ -1,23 +1,22 @@
 """Weak-scaling harness for the distributed SpMV paths.
 
-BASELINE.json's north star asks for >=70% weak-scaling efficiency from
-1 host to N>=2 hosts.  Real multi-chip hardware isn't attached to this
-environment, so this script IS the harness: it scales the problem with
-the mesh (rows_per_device held constant), measures per-iteration time on
-1..P devices, and reports efficiency = t(1) / t(P).  On a CPU mesh the
-absolute numbers are meaningless but the machinery (partition, halo
-ppermute pipeline, timing) is exactly what a pod run uses:
+BASELINE.json's north star asks for >=70% weak-scaling efficiency.
+This script scales the problem with the mesh (rows_per_device held
+constant), measures per-iteration time on 1..P devices, and reports
+efficiency = t(1) / t(P).  On a faked CPU mesh the absolute numbers say
+nothing about a device (all fake devices share the host's cores); the
+machinery (partition, halo ppermute pipeline, timing) is what a run on
+several GPUs uses.
 
-  jax.distributed init -> make_row_mesh() over all chips -> same code.
-
-Usage (faked mesh):
+Usage:
+  python benchmarks/dist_weak_scaling.py [band|csr|spgemm]   # GPUs
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-  JAX_PLATFORMS=cpu python benchmarks/dist_weak_scaling.py [band|route]
+  JAX_PLATFORMS=cpu python benchmarks/dist_weak_scaling.py   # rehearsal
 
-``band`` (default) scales the halo band pipeline; ``route`` scales the
-unstructured per-shard ROUTE2 path through the round-4 chooser surface
-(partition_spmv / dist_plan_spmv) — the same two entry points a pod
-run uses.
+``band`` (default) scales the halo band pipeline; ``csr`` scales the
+unstructured generic gather blocks through the chooser surface
+(partition_spmv / dist_plan_spmv); ``spgemm`` scales the distributed
+SpGEMM numeric re-run.
 """
 
 import time
@@ -64,10 +63,9 @@ def measure(p: int) -> float:
 DEG = 10
 
 
-def measure_route(p: int) -> float:
+def measure_csr(p: int) -> float:
     """Unstructured weak scaling through the chooser surface
-    (partition_spmv with the TPU-default per-shard ROUTE2 selection,
-    forced via ``prefer`` on the CPU mesh)."""
+    (partition_spmv's default generic gather blocks)."""
     from spblas_tpu.parallel import (dist_plan_spmv, partition_spmv,
                                      partition_spmv_vector)
     from spblas_tpu.utils.generate import generate_csr
@@ -75,7 +73,7 @@ def measure_route(p: int) -> float:
     mesh = make_row_mesh(p, devices=jax.devices()[:p])
     m = ROWS_PER_DEVICE * p
     a = generate_csr(m, m, DEG * m, seed=0)
-    kind, plan = partition_spmv(a, mesh, prefer="route")
+    kind, plan = partition_spmv(a, mesh)
     x = partition_spmv_vector((kind, plan),
                               jnp.ones((m,), jnp.float32), mesh)
 
@@ -100,23 +98,20 @@ def measure_route(p: int) -> float:
 
 
 def measure_spgemm(p: int) -> float:
-    """Distributed SpGEMM numeric weak scaling through the stacked
-    per-shard mul engines (round 5): work per device held constant
-    (C = A·A, rows scale with the mesh), numeric re-run timed."""
+    """Distributed SpGEMM numeric weak scaling: work per device held
+    constant (C = A·A, rows scale with the mesh), numeric re-run
+    timed."""
     import dataclasses
-    import os
     from spblas_tpu.parallel import (dist_spgemm_compute,
                                      dist_spgemm_numeric,
                                      partition_rowblock)
     from spblas_tpu.utils.generate import generate_csr
 
-    os.environ["SPBLAS_FORCE_ROUTE_SPGEMM"] = "1"   # CPU-mesh force
     mesh = make_row_mesh(p, devices=jax.devices()[:p])
-    m = (ROWS_PER_DEVICE // 8) * p                  # keep host pack fast
+    m = (ROWS_PER_DEVICE // 8) * p
     a = generate_csr(m, m, DEG * m, seed=0)
     ar = partition_rowblock(a, mesh)
     plan = dist_spgemm_compute(ar, ar, mesh)
-    assert plan.engine is not None
 
     def run(values):
         c = dist_spgemm_numeric(
@@ -139,8 +134,8 @@ def measure_spgemm(p: int) -> float:
 def main():
     import sys
     mode = sys.argv[1] if len(sys.argv) > 1 else "band"
-    fn = {"route": measure_route,
-          "spgemm": measure_spgemm}.get(mode, measure)
+    fn = {"band": measure, "csr": measure_csr,
+          "spgemm": measure_spgemm}[mode]
     pmax = jax.device_count()
     t1 = fn(1)
     print(f"[{mode}] p=1: {t1*1e3:.2f} ms/iter "

@@ -1,8 +1,9 @@
-"""Block-sparse (BSR) tour: MXU SpMV/SpMM and block SpGEMM.
+"""Block-sparse (BSR) tour: block SpMV/SpMM and block SpGEMM.
 
-BSR is the TPU-preferred sparse format: every stored nonzero is a dense
-(bh, bw) tile, so products run on the MXU with zero index traffic inside
-blocks.  Kernels run compiled on TPU, interpreted elsewhere.
+Every stored nonzero of a BSR matrix is a dense (bh, bw) tile, so each
+product is one batched dense block product over the stored blocks plus a
+segment sum by block row (kernels/bsr.py), with zero index traffic
+inside blocks.  Any block shape works; this tour uses two.
 """
 
 import numpy as np
@@ -10,8 +11,7 @@ import jax.numpy as jnp
 
 import spblas_tpu as sp
 from spblas_tpu.formats.bsr import BSR
-from spblas_tpu.kernels.bsr_spgemm import (bsr_spgemm_compute,
-                                           bsr_spgemm_numeric)
+from spblas_tpu.kernels.bsr import bsr_spgemm_compute, bsr_spgemm_numeric
 
 rng = np.random.default_rng(0)
 
@@ -47,7 +47,20 @@ c1 = bsr_spgemm_numeric(plan, a, bm)
 assert np.allclose(np.asarray(c1.todense()), da @ db, rtol=1e-3,
                    atol=1e-3)
 
-# same through multiply: BSR x BSR routes to the block kernel
+# same through multiply: BSR x BSR goes to the block kernel
 c2 = sp.multiply(a, bm)
-assert isinstance(c2, BSR)
+assert isinstance(c2, BSR) and c2.block_shape == (8, 128)
+assert np.allclose(np.asarray(c2.todense()), da @ db, rtol=1e-3,
+                   atol=1e-3)
+
+# small square blocks through the same kernels
+ds = blocky(256, 256, 16, 16, 60, seed=3)
+s16 = BSR.from_dense(ds, (16, 16))
+xs = rng.standard_normal(256).astype(np.float32)
+assert np.allclose(np.asarray(sp.multiply(s16, jnp.asarray(xs))), ds @ xs,
+                   rtol=1e-4, atol=1e-4)
+c16 = sp.multiply(s16, s16)
+assert isinstance(c16, BSR) and c16.block_shape == (16, 16)
+assert np.allclose(np.asarray(c16.todense()), ds @ ds, rtol=1e-3,
+                   atol=1e-3)
 print("ok")

@@ -1,7 +1,7 @@
 """Distributed op tour: banded SpMV/SpMM halo pipeline, SpGEMM with
 numeric reuse, SpADD, and block-substitution SpTRSV over a device mesh.
 
-Run on real chips, or fake a mesh on CPU:
+Run on several GPUs, or fake a mesh on CPU:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   JAX_PLATFORMS=cpu python examples/distributed_ops.py
 """
@@ -23,7 +23,7 @@ mesh = make_row_mesh()
 p = mesh.devices.size
 print("mesh:", mesh)
 
-# --- banded SpMV: h-wide halo exchange + local Pallas panels --------- #
+# --- banded SpMV: h-wide halo exchange + local band panels ----------- #
 m = 1024 * p
 a = generate_banded_csr(m, m, 33, seed=0)
 plan = partition_band(a, mesh)
@@ -63,28 +63,20 @@ xs = np.asarray(dist_triangular_solve(tplan, bp, mesh))[:mt]
 assert np.abs(np.asarray(L.todense()) @ xs - b).max() < 1e-4
 print("dist sptrsv ok")
 
-# --- distributed SpGEMM at engine speed (round 5) -------------------- #
-# the TPU default reuse path: stacked per-shard paned mul engines under
-# shard_map (forced here on the CPU mesh via the env gate)
-import os
-os.environ["SPBLAS_FORCE_ROUTE_SPGEMM"] = "1"
-try:
-    from spblas_tpu.parallel import (dist_spgemm_compute,
-                                     dist_spgemm_numeric,
-                                     partition_rowblock)
-    ar = partition_rowblock(g1, mesh)
-    br = partition_rowblock(g2, mesh)
-    plan = dist_spgemm_compute(ar, br, mesh)
-    assert plan.engine is not None, "stacked mul engine gate"
-    ce = assemble_csr(dist_spgemm_numeric(plan, ar, br, mesh))
-    assert np.allclose(np.asarray(ce.todense()), expected,
-                       rtol=1e-3, atol=1e-3)
-    # numeric re-run with new values, same sparsity (the reuse contract)
-    import dataclasses
-    a2 = dataclasses.replace(ar, values=ar.values * 3.0)
-    c3 = assemble_csr(dist_spgemm_numeric(plan, a2, br, mesh))
-    assert np.allclose(np.asarray(c3.todense()), 3.0 * expected,
-                       rtol=1e-3, atol=1e-3)
-finally:
-    os.environ.pop("SPBLAS_FORCE_ROUTE_SPGEMM", None)
-print("dist spgemm engine ok")
+# --- distributed SpGEMM numeric reuse -------------------------------- #
+# inspect once on host, then re-run the sharded numeric with new values
+# of the same sparsity (the reuse contract)
+import dataclasses
+from spblas_tpu.parallel import dist_spgemm_compute, dist_spgemm_numeric
+
+ar = partition_rowblock(g1, mesh)
+br = partition_rowblock(g2, mesh)
+plan = dist_spgemm_compute(ar, br, mesh)
+ce = assemble_csr(dist_spgemm_numeric(plan, ar, br, mesh))
+assert np.allclose(np.asarray(ce.todense()), expected, rtol=1e-3,
+                   atol=1e-3)
+a2 = dataclasses.replace(ar, values=ar.values * 3.0)
+c3 = assemble_csr(dist_spgemm_numeric(plan, a2, br, mesh))
+assert np.allclose(np.asarray(c3.todense()), 3.0 * expected,
+                   rtol=1e-3, atol=1e-3)
+print("dist spgemm numeric reuse ok")

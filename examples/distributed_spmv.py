@@ -1,7 +1,7 @@
 """Distributed SpMV over a device mesh — no reference counterpart
 (the reference is single-device; SURVEY.md §2.6).
 
-Run with real chips, or fake a mesh on CPU:
+Run on several GPUs, or fake a mesh on CPU:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   JAX_PLATFORMS=cpu python examples/distributed_spmv.py
 """
@@ -26,15 +26,14 @@ x = generate_vector(n, seed=1)
 expected = np.asarray(a.todense()) @ np.asarray(x)
 
 # --- recommended entry: the distributed chooser -------------------- #
-# picks band halo / per-shard ROUTE2 on TPU, generic blocks on CPU;
-# ``prefer`` forces a kind (here: exercise the TPU route path on the
-# CPU mesh)
-for prefer in (None, "route"):
-    kp = partition_spmv(a, mesh, prefer=prefer)
-    xv = partition_spmv_vector(kp, x, mesh)
-    y = np.asarray(dist_plan_spmv(kp, xv, mesh))[:m]
-    assert np.allclose(y, expected, rtol=1e-3, atol=1e-3)
-    print(f"chooser prefer={prefer!r} -> kind={kp[0]} ok")
+# generic gather blocks by default; ``prefer="band"`` takes the halo
+# band pipeline for narrow-band matrices
+kp = partition_spmv(a, mesh)
+assert kp[0] == "csr", kp[0]
+xv = partition_spmv_vector(kp, x, mesh)
+y = np.asarray(dist_plan_spmv(kp, xv, mesh))[:m]
+assert np.allclose(y, expected, rtol=1e-3, atol=1e-3)
+print(f"chooser default -> kind={kp[0]} ok")
 
 # dense-operand (SpMM) chooser: same selection surface
 B = np.random.default_rng(2).standard_normal((n, 8)).astype(np.float32)
@@ -44,7 +43,7 @@ C = np.asarray(dist_plan_spmm(kp, Bp, mesh))[:m]
 assert np.allclose(C, np.asarray(a.todense()) @ B, rtol=1e-3, atol=1e-3)
 print("spmm chooser kind=sell ok")
 
-# --- raw gather-block kernels (the CPU-class default) -------------- #
+# --- raw gather-block kernels, both strategies --------------------- #
 d = partition_csr(a, mesh)             # inspect: row blocks + ring layout
 xd = partition_vector(x, d, mesh)
 

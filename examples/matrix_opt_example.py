@@ -2,8 +2,8 @@
 
 Wrapping a matrix in ``matrix_opt`` lets repeated products amortize an
 inspection step: the first multiply builds a structured plan (DIA for
-banded matrices, padded-row ELL otherwise — the analogue of the oneMKL
-handle cache) and later multiplies reuse it.
+banded matrices, degree-bucketed SELL otherwise — the analogue of the
+oneMKL handle cache) and later multiplies reuse it.
 """
 
 import numpy as np

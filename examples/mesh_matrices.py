@@ -3,11 +3,9 @@
 SuiteSparse-class structure (BASELINE.md row 1): discretized PDE
 operators are a few dense diagonals spread wide — band fill ~0.002 but
 DIA fill 0.8-1.0.  The `matrix_opt` chooser lands them on the DIA rung
-(kernels/dia.py), whose fused Pallas multi-diagonal kernel reads x and
-every diagonal once per pass (21.9 Gnnz/s on the 1000x1000 5-point
-stencil, PERF_NOTES round 3).  Mirrors the reference inspector-executor
-usage (matrix_opt_impl.hpp:14-97); asserts a dense oracle like every
-example.
+(kernels/dia.py), which streams every diagonal once per SpMV with no
+index traffic.  Mirrors the reference inspector-executor usage
+(matrix_opt_impl.hpp:14-97); asserts a dense oracle like every example.
 """
 
 import numpy as np
@@ -27,7 +25,7 @@ m = a.shape[0]
 x = np.asarray(generate_vector(m, seed=1))
 dense = np.asarray(a.todense())
 
-plan = build_dia_plan(a)                    # what the TPU chooser picks
+plan = build_dia_plan(a)                    # what the chooser picks
 from spblas_tpu.kernels.dia import dia_fill_fraction
 print(f"2D stencil: {len(plan.offsets)} diagonals, "
       f"DIA fill {dia_fill_fraction(a):.2f}")

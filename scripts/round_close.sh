@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Round-close gate (VERDICT r4 #2): the committed tree must be green.
+# Round-close gate: the committed tree must be green.
 #
 # Run this BEFORE the final commit of a round.  It runs the FULL test
 # suite (not a subset — rounds 3 and 4 both shipped red because a

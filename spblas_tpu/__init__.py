@@ -1,7 +1,7 @@
-"""spblas_tpu — a TPU-native sparse linear-algebra framework.
+"""spblas_tpu — a JAX sparse linear-algebra framework.
 
-Brand-new JAX/XLA/Pallas implementation of the Sparse BLAS capability set of
-SparseBLAS/spblas-reference (studied at /root/reference): SpMV, SpMM,
+Brand-new JAX/XLA implementation of the Sparse BLAS capability set of
+SparseBLAS/spblas-reference: SpMV, SpMM,
 two-phase SpGEMM (with numeric reuse and the 4-arg fused form), SpADD,
 SpTRSV with level scheduling, transpose, and the scaled / conjugated /
 transposed / matrix_opt view algebra — over CSR / CSC / COO / BSR pytree

@@ -1,13 +1,12 @@
 """Sort-based sparse kernel building blocks.
 
-TPU-native replacement for the reference's scatter-style accumulators —
+Replacement for the reference's scatter-style accumulators —
 ``spa_accumulator`` (include/spblas/backend/spa_accumulator.hpp:14-104),
 ``hash_accumulator`` (hash_accumulator.hpp:16-88) and ``csr_builder``
-(csr_builder.hpp:18-70).  Dense scatter-accumulators don't map to the TPU's
-vector memory; the idiomatic XLA formulation is *expand → lexicographic sort
-→ segmented reduce* (ESC), built entirely from ``lax.sort`` (stable,
-multi-key), cumulative sums and segment reductions that XLA tiles onto the
-VPU.
+(csr_builder.hpp:18-70).  Per-row dense scatter-accumulators don't map to
+a data-parallel device; the idiomatic XLA formulation is *expand →
+lexicographic sort → segmented reduce* (ESC), built entirely from
+``lax.sort`` (stable, multi-key), cumulative sums and segment reductions.
 
 Everything here is shape-static and jittable: invalid/padded entries carry a
 sentinel row ``m`` that sorts after all live entries and is dropped by

@@ -1,10 +1,9 @@
 """BSR container — block compressed sparse row.
 
 No reference counterpart (the reference has CSR/CSC only) but in scope per
-BASELINE.json's north-star format list.  BSR is the *TPU-preferred* sparse
-format: each nonzero is a dense (bh, bw) block, so SpMV/SpMM become batched
-dense contractions that land straight on the MXU with zero gather traffic
-inside a block — see spblas_tpu.kernels.
+BASELINE.json's north-star format list.  Each nonzero is a dense (bh, bw)
+block, so SpMV/SpMM become batched dense block contractions with zero index
+traffic inside a block — see spblas_tpu.kernels.bsr.
 
 Layout: values (capacity, bh, bw), block_rowptr (mb + 1,),
 block_colind (capacity,), where mb = m // bh.

@@ -1,7 +1,7 @@
 """Format conversions (CSR ⇄ CSC ⇄ COO).
 
 The reference's generic layer lets one algorithm iterate any format via
-CPOs (include/spblas/backend/view_customizations.hpp); on TPU the analogue
+CPOs (include/spblas/backend/view_customizations.hpp); here the analogue
 is cheap canonicalization: ops that want row iteration call ``to_csr`` and
 pay one stable sort at most.  All conversions are jittable (shape-static).
 """

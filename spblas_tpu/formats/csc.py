@@ -1,6 +1,6 @@
 """CSC container — column-compressed mirror of CSR.
 
-TPU-native re-design of the reference's ``csc_view`` (reference:
+Re-design of the reference's ``csc_view`` (reference:
 include/spblas/views/csc_view.hpp:9-72).  Same padded-capacity container
 design as :mod:`spblas_tpu.formats.csr`; ``colptr`` compresses columns and
 ``rowind`` holds per-entry row indices.

@@ -1,6 +1,6 @@
 """CSR container — the workhorse sparse format.
 
-TPU-native re-design of the reference's ``csr_view`` (reference:
+Re-design of the reference's ``csr_view`` (reference:
 include/spblas/views/csr_view.hpp:12-77).  The reference exposes *non-owning
 spans* over user memory; spans don't map to JAX, so this is an immutable
 registered-pytree **container** with *static capacity*: ``values`` and

@@ -1,6 +1,6 @@
 """Operation info objects — the inspector-executor contract.
 
-TPU-native analogue of ``operation_info_t``
+Analogue of ``operation_info_t``
 (reference: include/spblas/detail/operation_info_t.hpp:28-103): the result of
 a symbolic/inspect phase, carrying ``result_shape`` / ``result_nnz`` plus an
 opaque, backend-owned plan.  Where the reference stashes vendor handles in a

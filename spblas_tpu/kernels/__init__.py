@@ -1,32 +1,25 @@
-"""Structured compute kernels — the TPU-native vendor-backend slot.
+"""Structured compute kernels — the vendor-backend slot.
 
 Where the reference swaps in cuSPARSE/rocSPARSE/oneMKL behind the same
 API (SURVEY.md §2.5), this package holds the structure-exploiting plans
-and Pallas kernels the plan chooser (`plans.build_matvec_plan`) selects
-from, driven by measured platform limits (PERF_NOTES.md).
+the plan chooser (`plans.build_matvec_plan`) selects from — DIA for
+banded and stencil matrices, SELL for general sparsity — plus the BSR
+block kernels.  Every kernel is plain XLA.
 
-Submodules load lazily (PEP 562): eagerly importing the Pallas kernel
-chain costs ~1 s of process start, which used to land inside the FIRST
-inspection phase of whichever op ran first (part of the round-2
-inspection-latency cliff, VERDICT r2 next-1).  Plan builders that never
-touch Pallas (route/sell/engine packers) now import in milliseconds.
+Submodules load lazily (PEP 562), so importing the package costs
+nothing until a kernel is used.
 """
 
 _EXPORTS = {
-    "BandPlan": "banded", "PermutedBandPlan": "banded",
-    "band_plan_from_diags": "banded", "band_power_iterations": "banded",
-    "band_spmm": "banded", "band_spmm_stream": "banded",
-    "band_spmv": "banded", "band_spmv_ad": "banded",
-    "build_band_plan": "banded", "build_permuted_band_plan": "banded",
-    "permuted_band_spmv": "banded",
-    "bsr_spmm": "bsr_pallas", "bsr_spmv": "bsr_pallas",
-    "BsrSpgemmPlan": "bsr_spgemm", "bsr_spgemm": "bsr_spgemm",
-    "bsr_spgemm_compute": "bsr_spgemm",
-    "bsr_spgemm_numeric": "bsr_spgemm",
+    "bsr_spmm": "bsr", "bsr_spmv": "bsr",
+    "BsrSpgemmPlan": "bsr", "bsr_spgemm": "bsr",
+    "bsr_spgemm_compute": "bsr", "bsr_spgemm_numeric": "bsr",
     "DiaPlan": "dia", "build_dia_plan": "dia", "dia_spmm": "dia",
     "dia_spmv": "dia",
     "EllPlan": "ell", "build_ell_plan": "ell", "ell_spmm": "ell",
     "ell_spmv": "ell",
+    "SellPlan": "sell", "build_sell_plan": "sell", "sell_spmm": "sell",
+    "sell_spmv": "sell",
     "build_matvec_plan": "plans", "plan_spmm": "plans",
     "plan_spmv": "plans",
 }

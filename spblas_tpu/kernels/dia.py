@@ -1,43 +1,36 @@
 """DIA (diagonal) plan: gather-free SpMV for banded matrices.
 
 No reference counterpart — the reference delegates structure exploitation
-to vendor handles; on TPU the banded case (BASELINE.json configs[0]:
-10k x 10k banded) deserves its own plan because storing diagonals densely
-removes ALL index traffic: y += diag_d * shift(x, d) is pure streaming at
-4 bytes/nnz of matrix traffic versus CSR's ~12, i.e. the DIA plan can beat
-the CSR HBM roofline by ~3x.
+to vendor handles; the banded case (BASELINE.json configs[0]: 10k x 10k
+banded) deserves its own plan because storing diagonals densely removes
+ALL index traffic: y += diag_d * shift(x, d) is pure streaming at 4
+bytes/nnz of matrix traffic versus CSR's ~12.
 
-Plan construction (inspect) detects the populated diagonals on host;
-execution is a jitted shift-multiply-accumulate scan over diagonals that
-XLA fuses into one pass over x/y.
+Plan construction (inspect) detects the populated diagonals on host.
+SpMV runs as one reduction over a stack of statically shifted x windows,
+which XLA fuses into a single pass over the diagonals with the x reads
+served from cache; SpMM keeps a shift-multiply-add chain, since a stack
+of (m, k) windows would not fit in cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from spblas_tpu.formats.csr import CSR
-from spblas_tpu.types import no_x64
+from spblas_tpu.formats.csr import CSR, host_row_ids
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DiaPlan:
-    """Diagonals stored dense: diags[k, i] = A[i, i + offsets[k]].
+    """Diagonals stored dense: diags[k, i] = A[i, i + offsets[k]]."""
 
-    ``diags`` is kept pre-padded in the Pallas kernel's (ndiag, rows,
-    128) block layout (m padded to a _DIA_RB*128 multiple) so the hot
-    apply does zero relayout; the XLA paths view it flat."""
-
-    diags: jax.Array      # (ndiag, rows_pad, 128)
+    diags: jax.Array      # (ndiag, m)
     offsets: Tuple[int, ...] = dataclasses.field(
         metadata=dict(static=True))  # static → shifts unroll at trace time
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
@@ -45,16 +38,6 @@ class DiaPlan:
     @property
     def ndiag(self) -> int:
         return int(self.diags.shape[0])
-
-    def diags_flat(self) -> jax.Array:
-        """(ndiag, m) view for the XLA shift-mul-accumulate paths."""
-        m = self.shape[0]
-        return self.diags.reshape(self.ndiag, -1)[:, :m]
-
-
-def _host_row_ids(a: CSR, nnz: int) -> np.ndarray:
-    from spblas_tpu.formats.csr import host_row_ids
-    return host_row_ids(a.rowptr, nnz, a.shape[0])
 
 
 def dia_fill_fraction(a: CSR) -> float:
@@ -65,7 +48,7 @@ def dia_fill_fraction(a: CSR) -> float:
     if nnz == 0:
         return 0.0
     colind = np.asarray(a.colind)[:nnz]
-    rows = _host_row_ids(a, nnz)
+    rows = host_row_ids(a.rowptr, nnz, m)
     offs = np.unique(colind.astype(np.int64) - rows)
     return nnz / float(len(offs) * m)
 
@@ -74,161 +57,54 @@ def build_dia_plan(a: CSR) -> DiaPlan:
     m, n = a.shape
     nnz = int(a.nnz)
     colind = np.asarray(a.colind)[:nnz]
-    rows = _host_row_ids(a, nnz)
+    rows = host_row_ids(a.rowptr, nnz, m)
     values = np.asarray(a.values)[:nnz]
     offs_arr = colind.astype(np.int64) - rows
     offsets = np.unique(offs_arr)
-    rows_pad = -(-m // (_DIA_RB_MAX * 128)) * _DIA_RB_MAX
-    diags = np.zeros((len(offsets), rows_pad * 128), dtype=values.dtype)
+    diags = np.zeros((len(offsets), m), dtype=values.dtype)
     pos = np.searchsorted(offsets, offs_arr)
     diags[pos, rows] = values
-    return DiaPlan(diags=jnp.asarray(diags.reshape(len(offsets),
-                                                   rows_pad, 128)),
+    return DiaPlan(diags=jnp.asarray(diags),
                    offsets=tuple(int(o) for o in offsets), shape=(m, n))
+
+
+def _padded(plan: DiaPlan, v: jax.Array):
+    """v zero-padded so every diagonal's shifted window is in bounds;
+    returns (padded v, pad_lo)."""
+    m, n = plan.shape
+    pad_lo = max(-min(plan.offsets, default=0), 0)
+    pad_hi = max(max(plan.offsets, default=0) + m - n, 0)
+    pad = [(pad_lo, pad_hi)] + [(0, 0)] * (v.ndim - 1)
+    return jnp.pad(v, pad), pad_lo
 
 
 @jax.jit
 def dia_spmv(plan: DiaPlan, x: jax.Array) -> jax.Array:
     """y[i] = sum_k diags[k, i] * x[i + offsets[k]].
 
-    On TPU with f32 data the fused Pallas kernel reads x and every
-    diagonal exactly once per apply (kernels/dia._dia_spmv_pallas);
-    elsewhere (CPU, 64-bit, complex, very large x, many diagonals) the
-    XLA shift-mul-accumulate chain below applies.  diags[k, i] is 0
-    wherever i + off falls outside the matrix, so padding contributes
-    nothing.
-    """
-    from spblas_tpu.types import on_tpu as _on_tpu
-    m, n = plan.shape
-    ndiag = plan.ndiag
-    if (_on_tpu() and ndiag and ndiag <= 32
-            and plan.diags.dtype == jnp.float32
-            and x.dtype in (jnp.float32, jnp.bfloat16)
-            # the x pane is VMEM-resident: its extent is set by the
-            # padded OPERAND (n for wide rectangles), not just m
-            and (max(m, n) + abs(min(plan.offsets))
-                 + abs(max(plan.offsets))) <= 2_500_000):
-        return _dia_spmv_pallas(plan, x)
-    pad_lo = max(-min(plan.offsets, default=0), 0)
-    pad_hi = max(max(plan.offsets, default=0) + m - n, 0)
-    xp = jnp.pad(x, (pad_lo, pad_hi))
-    d = plan.diags_flat()
-    y = jnp.zeros((m,), dtype=jnp.result_type(d.dtype, x.dtype))
-    for k, off in enumerate(plan.offsets):
-        y = y + d[k] * jax.lax.slice(
-            xp, (pad_lo + off,), (pad_lo + off + m,))
-    return y
-
-
-# ------------------------------------------------------------------ #
-# fused Pallas multi-diagonal kernel (round 3)
-# ------------------------------------------------------------------ #
-# The XLA chain above reads x once per diagonal and pays ~per-op fixed
-# costs per diagonal (mesh matrices measured ~105 GB/s effective —
-# PERF_NOTES round 3).  Here ALL offsets are plan-static, so each
-# diagonal's shifted x read is a static-length row slice plus a static
-# lane roll: one pass over x and the diagonals at streaming speed.
-
-_DIA_RB_MAX = 256     # output rows (x128 lanes) per grid step, and the
-_LANES = 128          # build-time diagonal padding unit
-
-
-def _dia_rb(ndiag: int) -> int:
-    """Block height: as tall as a ~2 MB double-buffered diagonal block
-    allows (rb=256 measured 25.0 vs 22.7 Gnnz/s at rb=64 on the 2D
-    stencil), always a divisor of the _DIA_RB_MAX build padding."""
-    for rb in (256, 128, 64):
-        if ndiag * rb * _LANES * 4 <= 2 * 1024 * 1024:
-            return rb
-    return 64
-
-
-def _dia_kernel(x_ref, d_ref, y_ref, *, offsets, pad_lo, rb):
-    i = pl.program_id(0)
-    base = i * rb
-    acc = jnp.zeros((rb, _LANES), jnp.float32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (rb, _LANES), 1)
-    for k, off in enumerate(offsets):
-        q, r = divmod(int(off) + pad_lo, _LANES)
-        xa0 = x_ref[pl.ds(base + q, rb), :]
-        if r == 0:
-            s = xa0
-        else:
-            xa1 = x_ref[pl.ds(base + q + 1, rb), :]
-            # left-shift by r == roll right by LANES - r.  np.int32:
-            # a weak Python-int shift traces as i64 under
-            # jax_enable_x64 and tpu.dynamic_rotate rejects i64 shift
-            # operands (round-5 spmv_f64 section, f32 leg under x64)
-            sh = np.int32(_LANES - r)
-            s = jnp.where(lane < _LANES - r,
-                          pltpu.roll(xa0, sh, 1),
-                          pltpu.roll(xa1, sh, 1))
-        acc = acc + d_ref[k] * s
-    y_ref[...] = acc
-
-
-@no_x64
-def _dia_spmv_pallas(plan: DiaPlan, x: jax.Array) -> jax.Array:
-    m, n = plan.shape
-    ndiag = plan.ndiag
-    offsets = plan.offsets
-    pad_lo = max(-min(offsets), 0)
-    rb = _dia_rb(ndiag)
-    rows_out = int(plan.diags.shape[1])     # _DIA_RB_MAX multiple
-    nblocks = rows_out // rb
-    # x rows must cover BOTH the furthest shifted read of the last
-    # block AND the padded operand itself (a wide rectangular matrix
-    # has n >> rows_out*128; the pad below would otherwise go negative
-    # — round-4 review)
-    max_q = max((off + pad_lo) // _LANES for off in offsets)
-    x_rows = max(rows_out + max_q + rb + 8,
-                 -(-(pad_lo + n) // _LANES))
-    xf = x.astype(jnp.float32)
-    x2 = jnp.pad(xf, (pad_lo, x_rows * _LANES - pad_lo - n)
-                 ).reshape(x_rows, _LANES)
-    d3 = plan.diags        # pre-padded (ndiag, rows_out, 128) at build
-
-    grid_spec = pl.GridSpec(
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((x_rows, _LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ndiag, rb, _LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rb, _LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    y2 = pl.pallas_call(
-        functools.partial(_dia_kernel, offsets=offsets, pad_lo=pad_lo,
-                          rb=rb),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((rows_out, _LANES), jnp.float32),
-        interpret=not _on_tpu_cached(),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ndiag * m,
-            bytes_accessed=(ndiag + 2) * m * 4,
-            transcendentals=0,
-        ),
-    )(x2, d3)
-    return jax.lax.slice(y2.reshape(-1), (0,), (m,)).astype(x.dtype)
-
-
-def _on_tpu_cached() -> bool:
-    from spblas_tpu.types import on_tpu
-    return on_tpu()
+    diags[k, i] is 0 wherever i + off falls outside the matrix, so the
+    padding contributes nothing.  On the H100 the stacked reduction beat
+    a shift-multiply-add chain at 101 diagonals and tied it at 5
+    (PERF.md)."""
+    m = plan.shape[0]
+    dt = jnp.result_type(plan.diags.dtype, x.dtype)
+    if not plan.offsets:
+        return jnp.zeros((m,), dt)
+    xp, pad_lo = _padded(plan, x)
+    windows = jnp.stack([jax.lax.slice(xp, (pad_lo + off,),
+                                       (pad_lo + off + m,))
+                         for off in plan.offsets])
+    return jnp.sum(plan.diags * windows, axis=0, dtype=dt)
 
 
 @jax.jit
 def dia_spmm(plan: DiaPlan, b: jax.Array) -> jax.Array:
-    m, n = plan.shape
-    pad_lo = max(-min(plan.offsets, default=0), 0)
-    pad_hi = max(max(plan.offsets, default=0) + m - n, 0)
-    bp = jnp.pad(b, ((pad_lo, pad_hi), (0, 0)))
+    m = plan.shape[0]
     kdim = b.shape[1]
-    d = plan.diags_flat()
-    c = jnp.zeros((m, kdim), dtype=jnp.result_type(d.dtype, b.dtype))
+    bp, pad_lo = _padded(plan, b)
+    c = jnp.zeros((m, kdim), dtype=jnp.result_type(plan.diags.dtype,
+                                                    b.dtype))
     for k, off in enumerate(plan.offsets):
-        c = c + d[k][:, None] * jax.lax.slice(
+        c = c + plan.diags[k][:, None] * jax.lax.slice(
             bp, (pad_lo + off, 0), (pad_lo + off + m, kdim))
     return c

@@ -1,10 +1,10 @@
 """ELL (padded-row) plan: the general-purpose optimized SpMV/SpMM layout.
 
 The reference's ``matrix_opt`` caches a vendor handle
-(views/matrix_opt_impl.hpp:90-92); the TPU-native analogue is a cached
+(views/matrix_opt_impl.hpp:90-92); the analogue here is a cached
 *re-layout*: CSR rows padded to a common width W so the per-row entry loop
-becomes a dense (m, W) vector axis — regular strides for the VPU, one 2D
-gather for x, and a lane-parallel reduction.  This removes the segment-sum
+becomes a dense (m, W) axis — regular strides, one 2D gather for x, and a
+row reduction.  This removes the segment-sum
 scatter from the SpMV hot path entirely (segmented sums become a dense
 ``sum(axis=1)``).
 
@@ -84,10 +84,7 @@ def ell_spmm(plan: EllPlan, b: jax.Array) -> jax.Array:
     """C = A @ B: per-entry B-row gather, reduce over W.
 
     For moderate W the reduction runs as W accumulated (m, k) row
-    gathers — measured 39 GFLOP/s vs 22 for the one-shot (m, W, k)
-    gather + einsum at k=256 on uniform 100k (the 3D intermediate is
-    what hurts, not the gather: row gathers stream at 100-375 GB/s,
-    PERF_NOTES.md round 2c).  The policy lives in
-    kernels.sell.bucket_matmul."""
+    gathers instead of one (m, W, k) gather + einsum; the policy lives
+    in kernels.sell.bucket_matmul."""
     from spblas_tpu.kernels.sell import bucket_matmul
     return bucket_matmul(plan.values, plan.cols, b)[: plan.shape[0]]

@@ -3,24 +3,16 @@
 The reference's vendors hide structure exploitation behind opaque handle
 optimization (``optimize_gemv``/``optimize_gemm``,
 vendor/onemkl_sycl/detail/matrix_opt hooks); here the chooser is explicit
-and measured (on TPU v5e, XLA per-element gather runs ~0.13 G elem/s —
-see kernels/banded.py — so structure exploitation is not an optimization
-but the difference between roofline and uselessness):
+and decides by structure alone:
 
-  banded, on TPU          → banded-panel MXU plan (dense 128-row windows)
-  banded, elsewhere       → DIA shift-mul-accumulate (zero index traffic)
-  general, on TPU         → ROUTE chunked in-register-gather plan
-                            (kernels/route2.py, round 2)
-  general, elsewhere      → ELL/SELL padded-row plan
+  few dense diagonals (banded, stencils) → DIA shift-mul-accumulate
+                                            (zero index traffic)
+  everything else                        → SELL degree-bucketed rows
 
-Measured thresholds (PERF_NOTES.md): permuted-band pays two keyed
-m-element sorts per apply (~0.2 Gnnz/s at m=8k), so RCM reordering is
-kept only when it makes the matrix *genuinely* banded (fill >= 5%); all
-other general sparsity routes to the ROUTE kernel when x and y fit the
-VMEM residency budget.
-
-Plans are cached on the OptimizedMatrix wrapper per op key, mirroring the
-lazy handle cache (detail/get_matrix_handle.hpp:17-40).
+Both plans are plain XLA and preserve the operand dtype, so one plan
+serves SpMV and SpMM for every dtype.  Plans are cached on the
+OptimizedMatrix wrapper, mirroring the lazy handle cache
+(detail/get_matrix_handle.hpp:17-40).
 """
 
 from __future__ import annotations
@@ -30,522 +22,32 @@ from typing import Tuple
 import jax
 
 from spblas_tpu.formats.convert import to_csr
-from spblas_tpu.kernels.banded import (BandPlan, band_halfwidth,
-                                       band_spmm, band_spmm_stream,
-                                       band_spmv, build_band_plan,
-                                       build_permuted_band_plan,
-                                       permuted_band_spmv)
-from spblas_tpu.kernels.dia import (DiaPlan, build_dia_plan, dia_spmv,
-                                    dia_spmm, dia_fill_fraction)
-from spblas_tpu.kernels.ell import (EllPlan, build_ell_plan, ell_spmv,
-                                    ell_spmm)
-from spblas_tpu.kernels.sell import (SellPlan, build_sell_plan,
-                                     sell_spmv, sell_spmm)
-from spblas_tpu.types import on_tpu as _on_tpu
+from spblas_tpu.kernels.dia import (build_dia_plan, dia_fill_fraction,
+                                    dia_spmm, dia_spmv)
+from spblas_tpu.kernels.ell import ell_spmm, ell_spmv
+from spblas_tpu.kernels.sell import build_sell_plan, sell_spmm, sell_spmv
 
 # DIA wins when its dense-diagonal storage is mostly true nonzeros:
 # above ~1/3 fill, 4 B/slot dense diagonals move fewer bytes than
 # 12 B/nnz CSR-style storage.
 _DIA_FILL_THRESHOLD = 0.34
-# banded-panel storage is W/(2h+1)-dense; keep it while the panel is
-# at least ~15% true nonzeros (else ELL's 8 B/nnz wins on traffic)
-_BAND_FILL_THRESHOLD = 0.15
-# BSR (8x128 blocks on the MXU) pays 1024 slots per stored block;
-# worthwhile when stored blocks are reasonably dense
-_BSR_FILL_THRESHOLD = 0.25
-_BSR_BLOCK = (8, 128)
-# RCM band only when genuinely bandable: below this permuted-band fill
-# the two keyed sorts per apply lose to the ROUTE kernel (measured
-# crossover ~m=20k at degree 60 on the old ELL path; ROUTE moves it
-# further in ROUTE's favor)
-_BAND_PERM_FILL_THRESHOLD = 0.05
-# ROUTE keeps x and y VMEM-resident: (x_rows + y_rows) * 512 B must fit
-# alongside scratch in ~16 MB of VMEM
-_ROUTE_VMEM_ROWS = 20_000
-
-
-
-
-def _band_fill(a, h) -> float:
-    w = 128 + 2 * h
-    return int(a.nnz) / float(max(a.shape[0], 1) * w)
-
-
-def _build_band_cx(a):
-    """Complex banded plan: two real band-panel plans over the same
-    structure (re/im planes).  (a+ib)(x+iy) = (ax-by) + i(ay+bx): four
-    real panel SpMVs replace the gather-bound complex fallback."""
-    import dataclasses
-    import jax.numpy as jnp
-    ar = dataclasses.replace(a, values=jnp.real(a.values))
-    ai = dataclasses.replace(a, values=jnp.imag(a.values))
-    return (build_band_plan(ar), build_band_plan(ai))
-
-
-def band_cx_spmv(plans, x):
-    import jax.numpy as jnp
-    pr, pi = plans
-    xr = jnp.real(x).astype(jnp.float32)
-    xi = jnp.imag(x).astype(jnp.float32)
-    yr = band_spmv(pr, xr) - band_spmv(pi, xi)
-    yi = band_spmv(pr, xi) + band_spmv(pi, xr)
-    return jax.lax.complex(yr, yi)
-
-
-def band_cx_spmm(plans, b):
-    import jax.numpy as jnp
-    pr, pi = plans
-    br = jnp.real(b).astype(jnp.float32)
-    bi = jnp.imag(b).astype(jnp.float32)
-    cr = band_spmm(pr, br) - band_spmm(pi, bi)
-    ci = band_spmm(pr, bi) + band_spmm(pi, br)
-    return jax.lax.complex(cr, ci)
-
-
-def _try_route_cx(a):
-    """Complex64 unstructured SpMV: two real ROUTE plans over the same
-    structure (re/im value planes), mirroring band_cx.  The structural
-    plan is built once from the real plane; the imaginary plan reuses
-    its routing tiles through the values-refresh path (one gather, no
-    second pack).  (a+ib)(x+iy) needs 4 real applies — still ~100x the
-    complex element-gather fallback on TPU.  Returns
-    ("route_cx", (kind, plan_re, plan_im)) or None."""
-    import dataclasses
-    import jax.numpy as jnp
-    ar = dataclasses.replace(a, values=jnp.real(a.values))
-    got = _try_route(ar)
-    if got is None:
-        return None
-    kind, plan = got
-    plan_i = plan.update_values(jnp.imag(a.values))
-    return ("route_cx", (kind, plan, plan_i))
-
-
-def route_cx_spmv(p, x):
-    import jax.numpy as jnp
-    kind, pr, pi = p
-    if jnp.issubdtype(x.dtype, jnp.complexfloating):
-        xr = jnp.real(x).astype(jnp.float32)
-        xi = jnp.imag(x).astype(jnp.float32)
-        yr = plan_spmv((kind, pr), xr) - plan_spmv((kind, pi), xi)
-        yi = plan_spmv((kind, pr), xi) + plan_spmv((kind, pi), xr)
-    else:
-        xr = x.astype(jnp.float32)
-        yr = plan_spmv((kind, pr), xr)
-        yi = plan_spmv((kind, pi), xr)
-    return jax.lax.complex(yr, yi)
-
-
-# plan kinds usable by BOTH spmv and spmm: the OptimizedMatrix cache
-# aliases these across the "matvec"/"matmul" keys so structured
-# inspection (RCM, band/BSR packing) runs once per matrix
-STRUCTURED_KINDS = ("band", "band_perm", "band_cx", "bsr", "dia")
-
-
-def _structured_plan(a, m, n, h):
-    """The shared structured-plan ladder (band/band_cx/BSR/RCM-band/
-    DIA); returns (kind, plan) or None when only general-sparsity plans
-    apply."""
-    import jax.numpy as jnp
-
-    if jnp.issubdtype(a.dtype, jnp.complexfloating):
-        # complex64 banded: two real band-panel plans (re/im planes) so
-        # complex structured matrices leave the gather path (VERDICT
-        # round-1 item 10); DIA/SELL below are jnp-based, complex-safe
-        if (_on_tpu() and a.dtype == jnp.complex64
-                and _band_fill(a, h) >= 0.02):
-            return ("band_cx", _build_band_cx(a))
-        if dia_fill_fraction(a) >= _DIA_FILL_THRESHOLD:
-            return ("dia", build_dia_plan(a))
-        return None
-    if a.dtype == jnp.float64:
-        # f64 containers (x64 enabled): the band/BSR/ROUTE Pallas
-        # kernels compute in f32; keep 64-bit data on the
-        # dtype-preserving DIA/SELL paths (reference bar: double
-        # instantiations throughout test/gtest, util.hpp:7-23)
-        if dia_fill_fraction(a) >= _DIA_FILL_THRESHOLD:
-            return ("dia", build_dia_plan(a))
-        return None
-    if _on_tpu():
-        if _band_fill(a, h) >= _BAND_FILL_THRESHOLD:
-            return ("band", build_band_plan(a))
-        bsr = _try_bsr(a)
-        if bsr is not None:
-            return ("bsr", bsr)
-        if _band_fill(a, h) >= 0.02:
-            # already banded, just narrow: the panel kernel still beats
-            # every gather path, and skipping RCM avoids two keyed
-            # sorts per apply
-            return ("band", build_band_plan(a))
-        if dia_fill_fraction(a) >= _DIA_FILL_THRESHOLD:
-            # few dense diagonals spread wide (2D/3D stencils): DIA's
-            # shift-mul-accumulate is pure streaming at 4 B/nnz matrix
-            # traffic — beats every indexed path on TPU too (round 3;
-            # the TPU ladder previously never tried DIA)
-            return ("dia", build_dia_plan(a))
-        if m == n:
-            # generic sparsity: try an RCM reordering into band panels
-            # (native inspector); keep it only if the permuted band is
-            # genuinely dense (the two keyed sorts per apply otherwise
-            # lose to the ROUTE kernel)
-            from spblas_tpu import native
-            import numpy as np
-            perm, h2 = native.rcm(
-                m, int(a.nnz), np.asarray(a.rowptr).astype(np.int64),
-                np.asarray(a.colind))
-            if _band_fill(a, h2) >= _BAND_PERM_FILL_THRESHOLD:
-                return ("band_perm",
-                        build_permuted_band_plan(a, perm=perm))
-        return None
-    if dia_fill_fraction(a) >= _DIA_FILL_THRESHOLD:
-        return ("dia", build_dia_plan(a))
-    return None
 
 
 def build_matvec_plan(a) -> Tuple[str, object]:
-    import jax.numpy as jnp
-
+    """(kind, plan) for ``a``; the plan serves both SpMV and SpMM."""
     a = to_csr(a)
-    m, n = a.shape
-    h = band_halfwidth(a)
-    structured = _structured_plan(a, m, n, h)
-    if structured is not None:
-        return structured
-    if (not jnp.issubdtype(a.dtype, jnp.complexfloating)
-            and a.dtype != jnp.float64 and _on_tpu()):
-        route = _try_route(a)
-        if route is not None:
-            return route
-    if a.dtype == jnp.complex64 and _on_tpu():
-        # complex64 unstructured: dual-plane ROUTE (band_cx analogue) —
-        # SELL's complex element gathers run at the 0.13 G elem/s wall
-        route = _try_route_cx(a)
-        if route is not None:
-            return route
-    # degree-bucketed SELL beats global-width ELL on padding and keeps
-    # the accumulated-row-gather hot loop (kernels/sell.py)
+    if dia_fill_fraction(a) >= _DIA_FILL_THRESHOLD:
+        return ("dia", build_dia_plan(a))
     return ("sell", build_sell_plan(a))
 
 
-def build_matmul_plan(a) -> Tuple[str, object]:
-    """SpMM plan: like :func:`build_matvec_plan` but general sparsity
-    lands on SELL, not ROUTE — the all-dense row-gather SpMM runs all
-    k columns in one pass (49 GFLOP/s at k=256 on uniform 100k) while
-    column-at-a-time ROUTE replays pay the whole SpMV cost per
-    column."""
-    a = to_csr(a)
-    m, n = a.shape
-    h = band_halfwidth(a)
-    structured = _structured_plan(a, m, n, h)
-    if structured is not None:
-        return structured
-    return ("sell", build_sell_plan(a))
-
-
-# hub-row mass above this fraction routes to the v1 ROUTE kernel: its
-# second full permutation scatters a row's segments across ANY lanes,
-# so hub rows don't serialize (measured: RMAT 131k deg16 v1 1.22 vs v2
-# 0.60 Gnnz/s).  Low-skew matrices take v2's cheaper chunks (~105 vs
-# ~160 ns marginal; uniform 300k v2 2.12 vs v1 1.49 Gnnz/s).
-_ROUTE_HUB_DEG = 32
-_ROUTE_HUB_FRACTION = 0.15
-
-
-def _hub_fraction(a) -> float:
-    """Fraction of nonzeros living in rows with degree > _ROUTE_HUB_DEG."""
-    import numpy as np
-    nnz = int(a.nnz)
-    if nnz == 0:
-        return 0.0
-    deg = np.diff(np.minimum(np.asarray(a.rowptr).astype(np.int64), nnz))
-    return float(deg[deg > _ROUTE_HUB_DEG].sum()) / nnz
-
-
-import dataclasses as _dc
-
-
-@jax.tree_util.register_dataclass
-@_dc.dataclass(frozen=True)
-class SortedRoutePlan:
-    """Degree-sorted ROUTE v1 + un-permute pass (round 5, VERDICT r4
-    #4 — the implemented RMAT attack).
-
-    Grouping equal-degree rows into stripes removes the per-stripe
-    degree imbalance that starves v1 cells on power-law patterns
-    (measured host fill on RMAT 131k deg16: 0.331 -> 0.464, chunks
-    5728 -> 4092); the result comes out in sorted row order and one
-    deg-1 ROUTE2 plan (the inverse permutation as a sparse matrix)
-    routes it back — a second Pallas dispatch instead of an
-    element-gather or keyed-sort un-permute.
-    Reference bar: vendor SpMV is pattern-oblivious
-    (include/spblas/vendor/cusparse/detail/spmv_impl.hpp:26-102)."""
-
-    base: object            # RoutePlan over A[perm, :]
-    # Route2Plan of the inverse permutation (deg-1 sparse matrix): the
-    # un-permute is a cheap second Pallas dispatch.  A fused variant
-    # (stage 2 = unperm + the base plan's aux reduction over its full
-    # output pane) was implemented and MEASURED WORSE: the degree sort
-    # spills ~10% of RMAT nnz to aux, and route2 packs those scattered
-    # aux targets at fill 0.109 (2356 chunks) where v1's recursive aux
-    # chain packs them at ~0.5 — on-chip 2.45 vs 2.97 Gnnz/s (round 5).
-    unperm: object
-    entry_perm: jax.Array   # (nnz,) original entry index per sorted entry
-
-    def update_values(self, values: jax.Array) -> "SortedRoutePlan":
-        return _dc.replace(
-            self, base=self.base.update_values(values[self.entry_perm]))
-
-    @property
-    def fill(self):
-        return self.base.fill
-
-    @property
-    def nchunks(self):
-        return self.base.nchunks + self.unperm.nchunks
-
-
-# second-dispatch overhead charged against the sorted plan's chunk win
-# (measured on chip, round 5: chained extra dispatch + glue)
-_SORTED_DISPATCH_NS = 150_000
-_V1_NS_PER_CHUNK = 160
-_R2_NS_PER_CHUNK = 70
-
-
-def _try_route_sorted(rp, ci, vv, m, n, nnz, plan_plain):
-    """Degree-sorted v1 + unperm candidate; returns (kind, plan) for
-    whichever of {plain, sorted} the chunk-cost model favors."""
-    import numpy as np
-    from spblas_tpu.kernels.route_plan import build_route_plan
-    from spblas_tpu.kernels.route2 import build_route2_plan
-
-    rp64 = np.minimum(rp.astype(np.int64), nnz)
-    deg = np.diff(rp64[: m + 1])
-    # order: degree (stripe balance) with a column-center-of-mass
-    # tiebreak (x-window locality within equal-degree runs) — the
-    # measured best of six orderings on RMAT 131k deg16 (chunks
-    # 5728 plain / 4092 deg-only / 3670 deg+com)
-    com = np.zeros(m)
-    np.add.at(com, np.repeat(np.arange(m), deg), ci[:nnz])
-    com = com / np.maximum(deg, 1)
-    perm = np.lexsort((com, -deg))
-    if np.array_equal(perm, np.arange(m)):
-        return ("route1", plan_plain)
-    new_deg = deg[perm]
-    starts = rp64[perm]
-    lens = new_deg
-    entry_perm = (np.repeat(starts - np.concatenate(
-        [[0], np.cumsum(lens)[:-1]]), lens)
-        + np.arange(int(lens.sum()))) if nnz else np.zeros(0, np.int64)
-    rp_s = np.concatenate([[0], np.cumsum(new_deg)])
-    plan_s = build_route_plan(rp_s, ci[:nnz][entry_perm],
-                              vv[:nnz][entry_perm], (m, n), nnz)
-    cost_plain = plan_plain.nchunks * _V1_NS_PER_CHUNK
-    est_unperm = int(m / (1024 * 0.3)) + 8
-    cost_sorted = (plan_s.nchunks * _V1_NS_PER_CHUNK
-                   + est_unperm * _R2_NS_PER_CHUNK
-                   + _SORTED_DISPATCH_NS)
-    if cost_sorted >= cost_plain:
-        return ("route1", plan_plain)
-    inv = np.empty(m, np.int64)
-    inv[perm] = np.arange(m)
-    unperm = build_route2_plan(
-        np.arange(m + 1, dtype=np.int64), inv,
-        np.ones(m, np.float32), (m, m), m)
-    return ("route1_sorted",
-            SortedRoutePlan(base=plan_s, unperm=unperm,
-                            entry_perm=jax.numpy.asarray(
-                                entry_perm, dtype=jax.numpy.int32)))
-
-
-def _try_route(a):
-    """ROUTE plan for general sparsity when x and y fit VMEM residency.
-
-    Kind "route" = ROUTE2 (kernels/route2.py, one lane gather/chunk);
-    kind "route1" = ROUTE v1 (kernels/route_plan.py, permutation-free
-    placement) for hub-heavy patterns — degree-sorted with an unperm
-    pass ("route1_sorted") when the chunk model favors it.
-    Returns (kind, plan) or None."""
-    import numpy as np
-
-    m, n = a.shape
-    rows = -(-n // 128) + -(-m // 128)
-    if rows > _ROUTE_VMEM_ROWS:
-        return _try_route_paned(a)
-    rp = np.asarray(a.rowptr)
-    ci = np.asarray(a.colind)
-    vv = np.asarray(a.values)
-    if _hub_fraction(a) > _ROUTE_HUB_FRACTION:
-        from spblas_tpu.kernels.route_plan import build_route_plan
-        plan_plain = build_route_plan(rp, ci, vv, (m, n), int(a.nnz))
-        return _try_route_sorted(rp, ci, vv, m, n, int(a.nnz),
-                                 plan_plain)
-    from spblas_tpu.kernels.route2 import build_route2_plan
-    plan = build_route2_plan(rp, ci, vv, (m, n), int(a.nnz))
-    if plan.fill < 0.08:
-        # hub-fraction mispredict insurance: a collapsed v2 fill means
-        # the pattern serializes v2 chunks; take v1 if its measured
-        # time model (chunks x ~180 ns) beats v2's (chunks x ~110 ns)
-        from spblas_tpu.kernels.route_plan import build_route_plan
-        plan1 = build_route_plan(rp, ci, vv, (m, n), int(a.nnz))
-        if plan1.nchunks * 180 < plan.nchunks * 110:
-            return ("route1", plan1)
-    return ("route", plan)
-
-
-# beyond-VMEM ROUTE: the tile/value stream is 8 KB per chunk; cap the
-# plan's device footprint (and its one-time upload) — past this the
-# chunk fill has collapsed enough that the plan outweighs the matrix
-# by >~50x and SELL's element gathers win on total cost for few applies
-import os as _os
-
-_ROUTE_PANED_BUDGET = int(_os.environ.get(
-    "SPBLAS_ROUTE_PANED_BUDGET", 5_000_000_000))
-
-
-def _try_route_paned(a):
-    """Paned ROUTE2 for matrices whose x/y exceed VMEM residency
-    (kernels/route_paned.py): x panes stream HBM->VMEM, one dispatch
-    per row panel.  Returns (kind, plan) or None when the estimated
-    plan stream blows the memory/upload budget."""
-    import numpy as np
-    from spblas_tpu.kernels.route_paned import (build_route_paned_plan,
-                                                estimate_paned_bytes)
-
-    m, n = a.shape
-    nnz = int(a.nnz)
-    if nnz == 0:
-        return None
-    if estimate_paned_bytes(m, n, nnz) > _ROUTE_PANED_BUDGET:
-        return None
-    plan = build_route_paned_plan(
-        np.asarray(a.rowptr), np.asarray(a.colind), np.asarray(a.values),
-        (m, n), nnz)
-    if plan.fill < 0.02:
-        # starved cells: the plan stream outweighs its own win
-        return None
-    return ("route_paned", plan)
-
-
-def _try_bsr(a):
-    """Build a BSR plan when the block structure is dense enough.
-
-    The matrix shape is padded (metadata only — no data moves) to block
-    multiples; padded rows/cols are structurally empty."""
-    import numpy as np
-    from spblas_tpu.formats.bsr import BSR
-    from spblas_tpu.formats.csr import CSR, host_row_ids
-
-    bh, bw = _BSR_BLOCK
-    m, n = a.shape
-    nnz = int(a.nnz)
-    if nnz == 0:
-        return None
-    rows = host_row_ids(a.rowptr, nnz, m)
-    cols = np.asarray(a.colind)[:nnz].astype(np.int64)
-    nb = -(-n // bw)
-    nnzb = len(np.unique((rows // bh) * nb + cols // bw))
-    if nnz / float(nnzb * bh * bw) < _BSR_FILL_THRESHOLD:
-        return None
-    m_pad = -(-m // bh) * bh
-    n_pad = -(-n // bw) * bw
-    if (m_pad, n_pad) != (m, n):
-        import jax.numpy as jnp
-        from spblas_tpu import types as _t
-        pad_rp = jnp.concatenate(
-            [a.rowptr.astype(_t.offset_dtype),
-             jnp.full((m_pad - m,), a.rowptr[-1], _t.offset_dtype)])
-        a = CSR(values=a.values, rowptr=pad_rp, colind=a.colind,
-                nnz=a.nnz, shape=(m_pad, n_pad))
-    bsr = BSR.from_csr(a, _BSR_BLOCK)
-    return (bsr, (m, n))
-
-
-# plan kinds that preserve the operand dtype (jnp formulations);
-# *_cx kinds are complex-AWARE but compute in two f32 planes
-_DTYPE_PRESERVING_KINDS = ("sell", "ell", "dia")
-_CX_KINDS = ("band_cx", "route_cx")
-
-
-def plan_dtype_safe(plan: Tuple[str, object], x_dtype) -> bool:
-    """True when running ``plan`` on an operand of ``x_dtype`` keeps
-    the numerics intact.  The f32 Pallas kinds (band/BSR/ROUTE) cast
-    their operand with ``astype(float32)``, which silently DROPS the
-    imaginary part of a complex operand and narrows f64; the *_cx
-    kinds split into two f32 planes, so they take complex64/f32 but
-    must not narrow complex128/f64 — those operands take the
-    dtype-preserving base paths instead (round-4 review; the TRSV
-    route gate already enforced this)."""
-    import jax.numpy as jnp
-    kind = plan[0]
-    if kind in _DTYPE_PRESERVING_KINDS:
-        return True
-    dt = jnp.dtype(x_dtype)
-    if kind in _CX_KINDS:
-        return dt not in (jnp.complex128, jnp.float64)
-    if jnp.issubdtype(dt, jnp.complexfloating) or dt == jnp.float64:
-        return False
-    return True
-
-
-def optimized_plan(opt, op_key: str, x_dtype):
-    """The cached-plan gate shared by spmv and spmm (one copy — the
-    two hand-rolled copies diverged on the dtype guard): returns the
-    (kind, plan) to run, or None when the op must take its base path.
-    Structured plans built for the sibling op are aliased so RCM/band/
-    BSR inspection runs once per matrix."""
-    alias = "matmul" if op_key == "matvec" else "matvec"
-    builder = build_matvec_plan if op_key == "matvec" \
-        else build_matmul_plan
-    cached = opt._plans.get(alias)
-    if cached is not None and cached[0] in STRUCTURED_KINDS:
-        plan = cached           # structured plans serve both ops
-    else:
-        plan = opt.get_plan(op_key, builder)
-    if not plan_dtype_safe(plan, x_dtype):
-        return None
-    return plan
-
-
-def transform_safe(x) -> bool:
-    """True when running a non-differentiable Pallas plan on ``x`` is
-    safe: concrete values or plain jit tracing.  JVP/batch tracers
-    (grad, vmap) must take the differentiable base paths instead."""
-    if not isinstance(x, jax.core.Tracer):
-        return True
-    from jax.interpreters.partial_eval import DynamicJaxprTracer
-    return isinstance(x, DynamicJaxprTracer)
+def optimized_plan(opt) -> Tuple[str, object]:
+    """The cached (kind, plan) of an OptimizedMatrix, built on first use."""
+    return opt.get_plan("plan", build_matvec_plan)
 
 
 def plan_spmv(plan: Tuple[str, object], x: jax.Array) -> jax.Array:
     kind, p = plan
-    if kind == "band":
-        return band_spmv(p, x)
-    if kind == "band_perm":
-        return permuted_band_spmv(p, x)
-    if kind == "bsr":
-        import jax.numpy as jnp
-        from spblas_tpu.kernels.bsr_pallas import bsr_spmv
-        bsr, (m, n) = p
-        xp = jnp.pad(x, (0, bsr.shape[1] - n))
-        return bsr_spmv(bsr, xp)[:m]
-    if kind == "route":
-        from spblas_tpu.kernels.route2_kernel import route2_spmv
-        return route2_spmv(p, x)
-    if kind == "route1":
-        from spblas_tpu.kernels.route_spmv import route_spmv
-        return route_spmv(p, x)
-    if kind == "route1_sorted":
-        from spblas_tpu.kernels.route_spmv import route_spmv
-        from spblas_tpu.kernels.route2_kernel import route2_spmv
-        return route2_spmv(p.unperm, route_spmv(p.base, x)
-                           ).astype(x.dtype)
-    if kind == "route_paned":
-        from spblas_tpu.kernels.route_paned import route_paned_spmv
-        return route_paned_spmv(p, x)
-    if kind == "band_cx":
-        return band_cx_spmv(p, x)
-    if kind == "route_cx":
-        return route_cx_spmv(p, x)
     if kind == "sell":
         return sell_spmv(p, x)
     if kind == "dia":
@@ -555,65 +57,6 @@ def plan_spmv(plan: Tuple[str, object], x: jax.Array) -> jax.Array:
 
 def plan_spmm(plan: Tuple[str, object], b: jax.Array) -> jax.Array:
     kind, p = plan
-    if kind == "band_perm":
-        # permute B rows by one multi-operand sort, band SpMM, un-permute
-        import jax.numpy as jnp
-
-        def row_permute(keys, mat):
-            cols = tuple(mat[:, j] for j in range(mat.shape[1]))
-            sorted_ = jax.lax.sort((keys,) + cols, num_keys=1)[1:]
-            return jnp.stack(sorted_, axis=1)
-
-        mp = p.perm.shape[0]
-        n = p.shape[1]
-        bp = jnp.pad(b, ((0, mp - b.shape[0]), (0, 0)))
-        b_p = row_permute(p.rank, bp)[:n]
-        c_p = band_spmm(p.band, b_p)
-        cp = jnp.pad(c_p, ((0, mp - c_p.shape[0]), (0, 0)))
-        return row_permute(p.perm, cp)[: p.shape[0]]
-    if kind == "band":
-        # resident-B kernel needs the whole padded B in VMEM; stream it
-        # from HBM once that would crowd the ~16 MB budget
-        resident_bytes = (p.nblocks * 128 + p.width) * b.shape[1] * 4
-        if resident_bytes > 6 * 1024 * 1024:
-            return band_spmm_stream(p, b)
-        return band_spmm(p, b)
-    if kind == "bsr":
-        import jax.numpy as jnp
-        from spblas_tpu.kernels.bsr_pallas import bsr_spmm
-        bsr, (m, n) = p
-        bp = jnp.pad(b, ((0, bsr.shape[1] - n), (0, 0)))
-        return bsr_spmm(bsr, bp)[:m]
-    if kind in ("route", "route1", "route1_sorted", "route_paned",
-                "route_cx"):
-        # A matvec ROUTE plan fed to spmm replays the whole SpMV cost
-        # per B column — a silent ~k-times trap (VERDICT r2 weak #6).
-        # Reachable only when a caller bypasses build_matmul_plan
-        # (whose general path is SELL); warn loudly and replay.
-        import warnings
-        warnings.warn(
-            f"plan_spmm got a '{kind}' (matvec) plan: replaying the "
-            f"SpMV kernel per column, ~{b.shape[1]}x the SpMM cost. "
-            "Build an SpMM plan with build_matmul_plan (SELL) instead.",
-            UserWarning, stacklevel=2)
-        import jax.numpy as jnp
-        if kind == "route_cx":
-            cols = jax.lax.map(lambda col: route_cx_spmv(p, col), b.T)
-        elif kind == "route":
-            from spblas_tpu.kernels.route2_kernel import route2_spmv
-            cols = jax.lax.map(lambda col: route2_spmv(p, col), b.T)
-        elif kind == "route_paned":
-            from spblas_tpu.kernels.route_paned import route_paned_spmv
-            cols = jax.lax.map(lambda col: route_paned_spmv(p, col), b.T)
-        elif kind == "route1_sorted":
-            cols = jax.lax.map(
-                lambda col: plan_spmv((kind, p), col), b.T)
-        else:
-            from spblas_tpu.kernels.route_spmv import route_spmv
-            cols = jax.lax.map(lambda col: route_spmv(p, col), b.T)
-        return jnp.transpose(cols)
-    if kind == "band_cx":
-        return band_cx_spmm(p, b)
     if kind == "sell":
         return sell_spmm(p, b)
     if kind == "dia":

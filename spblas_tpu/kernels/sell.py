@@ -6,9 +6,8 @@ uniform deg-10 at m=100k has max degree 26 — 2.6x padding.  SELL-C-σ
 (Kreutzer et al., arXiv:1307.6209 — PAPERS.md) sorts rows by degree and
 pads per slice; here slices are power-of-two WIDTH BUCKETS, each a
 dense (mb, Wb) block, so padding is < 2x of the live entries per bucket
-and the hot loop stays the measured-fast accumulated row-gather form
-(PERF_NOTES.md round 2c: row gathers 100-375 GB/s; the (m, W, k)
-3D-gather intermediate is what hurts).
+and the hot loop is an accumulated row gather per width column (no
+(m, W, k) 3D-gather intermediate).
 
 Outputs are computed bucket-by-bucket in degree-sorted order and
 un-permuted with ONE (m, k) row gather; rows with no entries read an
@@ -35,14 +34,12 @@ from spblas_tpu.formats.csr import CSR
 # rows, so the 3D intermediate is small)
 _UNROLL_MAX = 64
 
-# Width ladder for degree bucketing.  Round-3 measurement
-# (benchmarks/dev/gather_probe.py): the XLA row gather runs at a flat
-# ~144 Mrows/s (k=256) regardless of index order, so SELL throughput is
-# (1/padding) of that wall — pow-2 buckets padded 1.36x on uniform
-# deg-10; this ladder caps within-bucket padding at ~1.2x worst /
-# ~1.08x typical while keeping the unrolled-gather count (sum of
-# widths) bounded for compile size.  Wider than 64 -> pow-2 (einsum
-# path, few rows).
+# Width ladder for degree bucketing.  Gathered rows are the cost, so
+# padding is throughput: pow-2 buckets pad uniform deg-10 by 1.36x,
+# this ladder caps within-bucket padding at ~1.2x worst / ~1.08x
+# typical while keeping the unrolled-gather count (sum of widths)
+# bounded for compile size.  Wider than 64 -> pow-2 (einsum path, few
+# rows).
 _WIDTH_LADDER = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32,
                  40, 48, 56, 64)
 
@@ -129,12 +126,9 @@ def build_sell_plan(a: CSR) -> SellPlan:
             np.where(val_mask, values[gidx], 0).astype(values.dtype),
             np.where(val_mask, colind[gidx], 0).astype(np.int32),
             gidx.astype(np.int32), val_mask))
-    # one batched placement for all bucket arrays + pos (inspection
-    # latency: per-array placements pay dispatch round-trips)
-    from spblas_tpu.utils.placement import device_put_batch
-    flat = device_put_batch(
-        *[arr for hb in host_buckets for arr in hb],
-        pos.astype(np.int32))
+    flat = jax.device_put(
+        tuple(arr for hb in host_buckets for arr in hb)
+        + (pos.astype(np.int32),))
     buckets = tuple(
         SellBucket(values=flat[4 * i], cols=flat[4 * i + 1],
                    gather_idx=flat[4 * i + 2], valid=flat[4 * i + 3])
@@ -145,7 +139,7 @@ def build_sell_plan(a: CSR) -> SellPlan:
 def bucket_matmul(values: jax.Array, cols: jax.Array,
                   mat: jax.Array) -> jax.Array:
     """(mb, W) padded rows x dense mat -> (mb, k): W accumulated row
-    gathers for moderate widths (the measured-fast form), the one-shot
+    gathers for moderate widths, the one-shot
     3D gather for wide hub buckets (few rows there, and the unrolled
     form would trace thousands of gathers).  Shared by SELL, ELL and
     the distributed SELL executor."""

@@ -1,7 +1,7 @@
 """Native host runtime: C++ inspector kernels bound via ctypes.
 
-The TPU numeric path is XLA/Pallas; the pointer-chasing *inspector*
-work (plan geometry, level scheduling, symbolic SpGEMM, Matrix Market IO)
+The device numeric path is XLA; the pointer-chasing *inspector* work
+(plan geometry, level scheduling, symbolic SpGEMM, Matrix Market IO)
 runs on host and is implemented natively (src/spblas_host.cpp), matching
 the reference's division where all algorithms are native C++ headers.
 
@@ -22,9 +22,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "src", "spblas_host.cpp")
-_SRC2 = os.path.join(_HERE, "src", "route_pack.cpp")
-_SRC3 = os.path.join(_HERE, "src", "route2_pack.cpp")
-_SRC4 = os.path.join(_HERE, "src", "sort_util.cpp")
+_SRC2 = os.path.join(_HERE, "src", "sort_util.cpp")
 _LIB = os.path.join(_HERE, "libspblas_host.so")
 
 _lock = threading.Lock()
@@ -34,7 +32,7 @@ _build_failed = False
 
 def _build() -> bool:
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-std=c++17", _SRC, _SRC2, _SRC3, _SRC4, "-o", _LIB,
+           "-std=c++17", _SRC, _SRC2, "-o", _LIB,
            "-lpthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
@@ -57,7 +55,7 @@ def get_lib():
         # treat missing sources as "no rebuild needed" instead of
         # raising from getmtime (graceful-degradation contract)
         src_mtime = max((os.path.getmtime(s)
-                         for s in (_SRC, _SRC2, _SRC3, _SRC4)
+                         for s in (_SRC, _SRC2)
                          if os.path.exists(s)), default=0.0)
         if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < src_mtime:
             if not _build():
@@ -101,52 +99,8 @@ def _declare(lib):
                                    ctypes.c_void_p, ctypes.c_void_p]
     lib.spblas_coo_to_csr.restype = None
     lib.spblas_coo_to_csr.argtypes = [i64, i64, i32p, i32p, f64p, i64p]
-    lib.spblas_rcm.restype = i64
-    lib.spblas_rcm.argtypes = [i64, i64, i64p, i32p, i64p]
-    lib.spblas_mul_expand.restype = i64
-    lib.spblas_mul_expand.argtypes = [
-        i64, i64, i64p, i32p, i64, i64p, i32p, i64, i64p, i32p,
-        i64, i64, i64, i64p, i64p, i64p]
-    lib.spblas_route_pack.restype = i64
-    lib.spblas_route_pack.argtypes = [
-        i64, i64, i64p, i32p, i32p, i64,
-        i32p, i32p, i32p, i32p, i32p, i32p, i64p, i32p, i32p, i32p,
-        i64p]
-    lib.spblas_route_mul_pack.restype = i64
-    lib.spblas_route_mul_pack.argtypes = [
-        i64, i64, i64p, i32p, i32p, i32p, i64, i32p, i32p, i32p, i32p]
-    lib.spblas_route2_pack.restype = i64
-    lib.spblas_route2_pack.argtypes = [
-        i64, i64, i64p, i32p, i32p, i64, i64, ctypes.c_int32,
-        i32p, i32p, i32p, i32p, i32p, i32p, i64p, i64p, i32p, i32p,
-        i32p, i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, i32p]
-    lib.spblas_route2_mul_pack.restype = i64
-    lib.spblas_route2_mul_pack.argtypes = [
-        i64, i64, i64p, i32p, i32p, i32p, i64, i64,
-        i32p, i32p, i32p, i32p, i64p, i64p, i32p, i32p]
-    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-    lib.spblas_route2_keys.restype = None
-    lib.spblas_route2_keys.argtypes = [
-        i64, i64p, i64p, ctypes.c_int32, ctypes.c_int32, i64,
-        ctypes.c_void_p, i64, i64p]
     lib.spblas_argsort_i64.restype = i64
     lib.spblas_argsort_i64.argtypes = [i64, i64p, i32p, i64p]
-    lib.spblas_fill_group_tiles.restype = None
-    lib.spblas_fill_group_tiles.argtypes = [
-        i64, i32p, i32p, f32p, i64p, i64, i32p, i64, f32p, i32p]
-    lib.spblas_gather_f32.restype = None
-    lib.spblas_gather_f32.argtypes = [i64, i32p, f32p, f32p]
-    lib.spblas_gather_i64.restype = None
-    lib.spblas_gather_i64.argtypes = [i64, i32p, i64p, i64p]
-    lib.spblas_gather_tiles.restype = None
-    lib.spblas_gather_tiles.argtypes = [i64, i32p, ctypes.c_void_p,
-                                        ctypes.c_void_p]
-    lib.spblas_expand_rowptr.restype = None
-    lib.spblas_expand_rowptr.argtypes = [i64, i64, i64p, i64p]
-    lib.spblas_gather_tiles_fill.restype = None
-    lib.spblas_gather_tiles_fill.argtypes = [
-        i64, i32p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 # ------------------------------------------------------------------ #
@@ -380,269 +334,6 @@ def coo_to_csr(m, rows, cols, vals):
     return rows, cols, vals, np.cumsum(rowptr)
 
 
-def rcm(m, nnz, rowptr, colind):
-    """Reverse Cuthill-McKee ordering on A + A^T.
-
-    Returns (perm, halfwidth): perm[i] = old row id at new position i,
-    and the permuted matrix's band half-width.  Native only (no numpy
-    fallback — returns identity with original width if unavailable).
-    """
-    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
-    colind = np.ascontiguousarray(colind, dtype=np.int32)
-    lib = get_lib()
-    if lib is None:
-        rows = np.repeat(np.arange(m),
-                         np.minimum(rowptr[1:], nnz) -
-                         np.minimum(rowptr[:-1], nnz))
-        h = int(np.abs(colind[:nnz] - rows).max()) if nnz else 0
-        return np.arange(m, dtype=np.int64), h
-    perm = np.zeros(m, np.int64)
-    h = int(lib.spblas_rcm(m, nnz, rowptr, colind, perm))
-    return perm, h
-
-
-def route_pack(ne, ncells, cell_start, lrow, lcol):
-    """Native ROUTE chunk packing (kernels/route_plan.py hot loop).
-
-    Returns (nchunks, elem_chunk, elem_gatpos, t1, t3, chunk_cell,
-    chunk_auxwin, aux_n, aux_slot, aux_lrow, aux_cell) or None when the
-    native library is unavailable (callers fall back to the python
-    packer)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell_start = np.ascontiguousarray(cell_start, np.int64)
-    lrow = np.ascontiguousarray(lrow, np.int32)
-    lcol = np.ascontiguousarray(lcol, np.int32)
-    max_chunks = int(ne // 1024 + 4 * ncells + 16)
-    for _ in range(4):
-        elem_chunk = np.zeros(max(ne, 1), np.int32)
-        elem_gatpos = np.zeros(max(ne, 1), np.int32)
-        t1 = np.zeros(max_chunks * 1024, np.int32)
-        t3 = np.zeros(max_chunks * 1024, np.int32)
-        chunk_cell = np.zeros(max_chunks, np.int32)
-        chunk_auxwin = np.zeros(max_chunks, np.int32)
-        aux_n = np.zeros(1, np.int64)
-        aux_slot = np.zeros(max(ne, 1), np.int32)
-        aux_lrow = np.zeros(max(ne, 1), np.int32)
-        aux_cell = np.zeros(max(ne, 1), np.int32)
-        aux_cnt = np.zeros(1, np.int64)
-        rc = lib.spblas_route_pack(
-            ne, ncells, cell_start, lrow, lcol, max_chunks,
-            elem_chunk, elem_gatpos, t1, t3, chunk_cell, chunk_auxwin,
-            aux_n, aux_slot, aux_lrow, aux_cell, aux_cnt)
-        if rc == -1:
-            max_chunks *= 4
-            continue
-        if rc < 0:
-            return None
-        nch = int(rc)
-        na = int(aux_cnt[0])
-        return (nch, elem_chunk, elem_gatpos,
-                t1[: nch * 1024].reshape(nch, 8, 128),
-                t3[: nch * 1024].reshape(nch, 8, 128),
-                chunk_cell[:nch], chunk_auxwin[:nch], int(aux_n[0]),
-                aux_slot[:na], aux_lrow[:na], aux_cell[:na])
-    return None
-
-
-def mul_expand(m, a_nnz, a_rowptr, a_colind, b_nnz, b_rowptr, b_colind,
-               d_nnz, d_rowptr, d_colind, a_cap, b_cap, e_total):
-    """Fused SpGEMM expansion stream for the route2-mul engine build:
-    (slots, sa, sb, result_nnz) in (row, col)-sorted order, or None when
-    the library is unavailable.  Semantics identical to the numpy path
-    in ops/spgemm._try_build_route (stable within-(row,col) order: A@B
-    expansion entries first, then D)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    a_rowptr = np.ascontiguousarray(a_rowptr, np.int64)
-    a_colind = np.ascontiguousarray(a_colind, np.int32)
-    b_rowptr = np.ascontiguousarray(b_rowptr, np.int64)
-    b_colind = np.ascontiguousarray(b_colind, np.int32)
-    d_rowptr = np.ascontiguousarray(
-        d_rowptr if d_nnz else np.zeros(1, np.int64), np.int64)
-    d_colind = np.ascontiguousarray(
-        d_colind if d_nnz else np.zeros(1, np.int32), np.int32)
-    slots = np.zeros(max(e_total, 1), np.int64)
-    sa = np.zeros(max(e_total, 1), np.int64)
-    sb = np.zeros(max(e_total, 1), np.int64)
-    rc = lib.spblas_mul_expand(
-        m, a_nnz, a_rowptr, a_colind, b_nnz, b_rowptr, b_colind,
-        d_nnz, d_rowptr, d_colind, a_cap, b_cap, e_total,
-        slots, sa, sb)
-    if rc < 0:
-        return None
-    return slots[:e_total], sa[:e_total], sb[:e_total], int(rc)
-
-
-def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
-                spill_only=False, spill=False, any_lane=True,
-                row_window=1024, rotate=False):
-    """Native ROUTE2 chunk packing (kernels/route2.py hot loop).
-
-    Returns (nch, tiles(nch,8,128), chunk_cell, chunk_auxwin,
-    chunk_group, elem_group, elem_scat, n_aux_windows, aux_slot,
-    aux_lrow, aux_cell, spill_idx, chunk_rho) or None when the library
-    is unavailable.  With ``spill=True``, Poisson-tail overflow beyond
-    each cell's deserved chunk count comes back as stream indices in
-    ``spill_idx`` for window-major repacking.  ``rotate=True``
-    (round 5) packs with per-chunk d=2 publish-position rotations;
-    chunk_rho carries rho0 | rho1 << 10 per chunk."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell_start = np.ascontiguousarray(cell_start, np.int64)
-    lrow = np.ascontiguousarray(lrow, np.int32)
-    lcol = np.ascontiguousarray(lcol, np.int32)
-    max_chunks = int(ne // 256 + 4 * ncells + 16)
-    for _ in range(4):
-        # np.empty, not zeros: the packer initializes every chunk it
-        # emits and every committed element's map entries (spilled
-        # entries are skipped downstream via spill_idx), and the
-        # worst-case max_chunks buffer is multi-GB on shattered mul
-        # streams — np.zeros memsets it all on warm allocator reuse
-        # (~2 s/panel, round-4 profile)
-        tiles = np.empty(max_chunks * 1024, np.int32)
-        chunk_cell = np.empty(max_chunks, np.int32)
-        chunk_auxwin = np.empty(max_chunks, np.int32)
-        chunk_group = np.empty(max_chunks, np.int32)
-        elem_group = np.empty(max(ne, 1), np.int32)
-        elem_scat = np.empty(max(ne, 1), np.int32)
-        aux_info = np.zeros(2, np.int64)
-        aux_slot = np.empty(max(ne, 1), np.int64)
-        aux_lrow = np.empty(max(ne, 1), np.int32)
-        aux_cell = np.empty(max(ne, 1), np.int32)
-        spill_out = np.empty(max(ne, 1) if spill else 1, np.int32)
-        spill_n = np.zeros(1, np.int64)
-        chunk_rho = np.zeros(max_chunks, np.int32)
-        rc = lib.spblas_route2_pack(
-            ne, ncells, cell_start, lrow, lcol, max_chunks,
-            int(aux_windows_in), int(spill_only),
-            tiles, chunk_cell, chunk_auxwin, chunk_group,
-            elem_group, elem_scat, aux_info, aux_slot, aux_lrow,
-            aux_cell, spill_out, spill_n, int(spill), int(any_lane),
-            int(row_window), int(rotate), chunk_rho)
-        if rc == -1:
-            max_chunks *= 4
-            continue
-        if rc < 0:
-            return None
-        nch = int(rc)
-        na = int(aux_info[0])
-        spill_idx = (spill_out[: int(spill_n[0])] if spill
-                     else np.zeros(0, np.int32))
-        return (nch, tiles[: nch * 1024].reshape(nch, 8, 128),
-                chunk_cell[:nch], chunk_auxwin[:nch],
-                chunk_group[:nch], elem_group, elem_scat,
-                int(aux_info[1]), aux_slot[:na], aux_lrow[:na],
-                aux_cell[:na], spill_idx, chunk_rho[:nch])
-    return None
-
-
-def route2_mul_pack(ne, ncells, cell_start, lslot, la, lb,
-                    aux_windows_in=0):
-    """Native ROUTE2-mul chunk packing (kernels/route2.py
-    _pack_mul_cell hot loop).  Returns (nch, t1, t2, chunk_cell,
-    chunk_auxwin, n_aux_windows, aux_slot, aux_lslot, aux_cell) or None
-    when the library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell_start = np.ascontiguousarray(cell_start, np.int64)
-    lslot = np.ascontiguousarray(lslot, np.int32)
-    la = np.ascontiguousarray(la, np.int32)
-    lb = np.ascontiguousarray(lb, np.int32)
-    max_chunks = int(ne // 256 + 4 * ncells + 16)
-    for _ in range(4):
-        # np.empty: see route2_pack — the packer writes every emitted
-        # chunk and the shattered-stream worst case is multi-GB
-        t1 = np.empty(max_chunks * 1024, np.int32)
-        t2 = np.empty(max_chunks * 1024, np.int32)
-        chunk_cell = np.empty(max_chunks, np.int32)
-        chunk_auxwin = np.empty(max_chunks, np.int32)
-        aux_info = np.zeros(2, np.int64)
-        aux_slot = np.empty(max(ne, 1), np.int64)
-        aux_lslot = np.empty(max(ne, 1), np.int32)
-        aux_cell = np.empty(max(ne, 1), np.int32)
-        rc = lib.spblas_route2_mul_pack(
-            ne, ncells, cell_start, lslot, la, lb, max_chunks,
-            int(aux_windows_in), t1, t2, chunk_cell, chunk_auxwin,
-            aux_info, aux_slot, aux_lslot, aux_cell)
-        if rc == -1:
-            max_chunks *= 4
-            continue
-        if rc < 0:
-            return None
-        nch = int(rc)
-        na = int(aux_info[0])
-        return (nch, t1[: nch * 1024].reshape(nch, 8, 128),
-                t2[: nch * 1024].reshape(nch, 8, 128),
-                chunk_cell[:nch], chunk_auxwin[:nch],
-                int(aux_info[1]), aux_slot[:na], aux_lslot[:na],
-                aux_cell[:na])
-    return None
-
-
-def route_mul_pack(ne, ncells, cell_start, lo, la, lb):
-    """Native ROUTE-mul chunk packing (kernels/route_mul.py hot loop).
-
-    lo/la/lb are the window-local slot / src_a / src_b per element of
-    the cell-sorted SpGEMM expansion stream.  Returns (nchunks, t1, t2,
-    t3, chunk_cell) or None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell_start = np.ascontiguousarray(cell_start, np.int64)
-    lo = np.ascontiguousarray(lo, np.int32)
-    la = np.ascontiguousarray(la, np.int32)
-    lb = np.ascontiguousarray(lb, np.int32)
-    max_chunks = int(ne // 256 + 4 * ncells + 16)
-    for _ in range(4):
-        t1 = np.zeros(max_chunks * 1024, np.int32)
-        t2 = np.zeros(max_chunks * 1024, np.int32)
-        t3 = np.zeros(max_chunks * 1024, np.int32)
-        chunk_cell = np.zeros(max_chunks, np.int32)
-        rc = lib.spblas_route_mul_pack(
-            ne, ncells, cell_start, lo, la, lb, max_chunks,
-            t1, t2, t3, chunk_cell)
-        if rc == -1:
-            max_chunks *= 4
-            continue
-        if rc < 0:
-            return None
-        nch = int(rc)
-        return (nch,
-                t1[: nch * 1024].reshape(nch, 8, 128),
-                t2[: nch * 1024].reshape(nch, 8, 128),
-                t3[: nch * 1024].reshape(nch, 8, 128),
-                chunk_cell[:nch])
-    return None
-
-
-def route2_keys(rows, cols, rw_bits, w_bits, ncellc, lvl=None,
-                lvl_mult=0):
-    """Packed ROUTE2 sort key (kernels/route2.py _pack_stream):
-    ``(cell_id << (15+rw_bits)) | (lrow << 15) | lcol`` with the cell id
-    optionally level-augmented.  Parallel native build, or None when the
-    library is unavailable (callers fall back to the numpy
-    expression)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    n = len(rows)
-    rows = np.ascontiguousarray(rows, np.int64)
-    cols = np.ascontiguousarray(cols, np.int64)
-    key = np.empty(n, np.int64)
-    lvl_p = None
-    if lvl is not None:
-        lvl = np.ascontiguousarray(lvl, np.int64)
-        lvl_p = lvl.ctypes.data_as(ctypes.c_void_p)
-    lib.spblas_route2_keys(n, rows, cols, int(rw_bits), int(w_bits),
-                           int(ncellc), lvl_p, int(lvl_mult), key)
-    return key
-
-
 def argsort_i64(key):
     """Stable parallel radix argsort of non-negative int64 keys.
 
@@ -659,96 +350,3 @@ def argsort_i64(key):
     if lib.spblas_argsort_i64(n, key, order, sorted_key) < 0:
         return None
     return order, sorted_key
-
-
-def fill_group_tiles(ngroup, elem_group, elem_scat, vals, ent,
-                     spill_idx=None):
-    """Parallel group val/src tile fill (kernels/route2.py
-    _pack_cells_native): ``vt[g, scat] = val``, ``st[g, scat] = ent or
-    -1`` skipping spilled stream indices.  Returns ``(vt, st)`` shaped
-    ``(ngroup, 8, 128)`` or None when the library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    ne = len(elem_group)
-    elem_group = np.ascontiguousarray(elem_group, np.int32)
-    elem_scat = np.ascontiguousarray(elem_scat, np.int32)
-    vals = np.ascontiguousarray(vals, np.float32)
-    ent = np.ascontiguousarray(ent, np.int64)
-    ng = max(ngroup, 1)
-    vt = np.empty((ng, 8, 128), np.float32)
-    st = np.empty((ng, 8, 128), np.int32)
-    if spill_idx is not None and len(spill_idx):
-        spill_idx = np.ascontiguousarray(spill_idx, np.int32)
-        lib.spblas_fill_group_tiles(ne, elem_group, elem_scat, vals,
-                                    ent, len(spill_idx), spill_idx,
-                                    ng, vt.reshape(-1), st.reshape(-1))
-    else:
-        dummy = np.zeros(1, np.int32)
-        lib.spblas_fill_group_tiles(ne, elem_group, elem_scat, vals,
-                                    ent, 0, dummy, ng, vt.reshape(-1),
-                                    st.reshape(-1))
-    return vt, st
-
-
-def gather(idx, src):
-    """Threaded ``src[idx]`` for f32/int64 1-D arrays and (k, 8, 128)
-    tile stacks (int32/f32).  Returns the gathered array or None when
-    the library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    idx = np.ascontiguousarray(idx, np.int32)
-    n = len(idx)
-    if src.ndim == 3 and src.shape[1:] == (8, 128) and src.itemsize == 4:
-        src = np.ascontiguousarray(src)
-        dst = np.empty((n, 8, 128), src.dtype)
-        lib.spblas_gather_tiles(n, idx, src.ctypes.data_as(
-            ctypes.c_void_p), dst.ctypes.data_as(ctypes.c_void_p))
-        return dst
-    if src.dtype == np.float32:
-        src = np.ascontiguousarray(src)
-        dst = np.empty(n, np.float32)
-        lib.spblas_gather_f32(n, idx, src, dst)
-        return dst
-    if src.dtype == np.int64:
-        src = np.ascontiguousarray(src)
-        dst = np.empty(n, np.int64)
-        lib.spblas_gather_i64(n, idx, src, dst)
-        return dst
-    return None
-
-
-def expand_rowptr(m, nnz, rowptr):
-    """``np.repeat(np.arange(m), np.diff(rowptr))`` (int64), threaded.
-    Returns None when the library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rowptr = np.ascontiguousarray(rowptr, np.int64)
-    rows = np.empty(nnz, np.int64)
-    lib.spblas_expand_rowptr(m, nnz, rowptr, rows)
-    return rows
-
-
-def gather_tiles_fill(idx, src, fill_tile):
-    """Pad-aware (8, 128) tile gather: ``out[i] = src[idx[i]]`` or
-    ``fill_tile`` where ``idx[i] < 0``.  Returns None when the library
-    is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    idx = np.ascontiguousarray(idx, np.int32)
-    src = np.ascontiguousarray(src)
-    if src.itemsize != 4:
-        # the native kernel memcpys 4096-byte tiles; wider dtypes must
-        # take the caller's numpy fallback (mirrors gather()'s guard)
-        return None
-    fill_tile = np.ascontiguousarray(fill_tile, src.dtype)
-    n = len(idx)
-    dst = np.empty((n, 8, 128), src.dtype)
-    lib.spblas_gather_tiles_fill(
-        n, idx, src.ctypes.data_as(ctypes.c_void_p),
-        fill_tile.ctypes.data_as(ctypes.c_void_p),
-        dst.ctypes.data_as(ctypes.c_void_p))
-    return dst

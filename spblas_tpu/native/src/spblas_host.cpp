@@ -1,7 +1,6 @@
 // spblas_host — native host-side inspector runtime for spblas_tpu.
 //
-// TPU-native division of labor: device numerics live in XLA/Pallas; the
-// *inspector* phases (plan construction, dependency analysis, format IO)
+// Division of labor: device numerics live in XLA; the *inspector* phases (plan construction, dependency analysis, format IO)
 // are host-side pointer-chasing workloads that the reference implements in
 // C++ (header-only algorithms, include/spblas/algorithms/*_impl.hpp) and
 // vendors hide inside handle "optimize" calls.  These are the equivalent
@@ -278,166 +277,3 @@ void spblas_coo_to_csr(int64_t m, int64_t nnz, int32_t* rows, int32_t* cols,
 }
 
 }  // extern "C"
-
-// ----------------------------------------------------------------- //
-// Reverse Cuthill-McKee bandwidth reduction on the symmetrized graph
-// A + A^T.  The inspector step of the permuted-band plan: on TPUs,
-// per-element gather is catastrophically slow, so generic sparsity is
-// restructured into dense band panels when a low-bandwidth ordering
-// exists.  out_perm int64[m]: new-order -> old row id.  Returns the
-// half bandwidth of the permuted matrix.
-// ----------------------------------------------------------------- //
-extern "C" int64_t spblas_rcm(int64_t m, int64_t nnz, const int64_t* rowptr,
-                              const int32_t* colind, int64_t* out_perm) {
-  // adjacency = A + A^T (structure only)
-  std::vector<int64_t> t_cnt(m + 1, 0);
-  for (int64_t e = 0; e < nnz; ++e) t_cnt[colind[e] + 1]++;
-  for (int64_t j = 0; j < m; ++j) t_cnt[j + 1] += t_cnt[j];
-  std::vector<int32_t> t_col(nnz);
-  {
-    std::vector<int64_t> cur(t_cnt.begin(), t_cnt.end() - 1);
-    for (int64_t i = 0; i < m; ++i) {
-      int64_t lo = std::min(rowptr[i], nnz), hi = std::min(rowptr[i + 1], nnz);
-      for (int64_t e = lo; e < hi; ++e)
-        t_col[cur[colind[e]]++] = static_cast<int32_t>(i);
-    }
-  }
-  std::vector<int64_t> deg(m, 0);
-  std::vector<int64_t> mark(m, -1);
-  // degrees of the union graph (count neighbors once)
-  auto for_neighbors = [&](int64_t i, auto&& fn) {
-    int64_t lo = std::min(rowptr[i], nnz), hi = std::min(rowptr[i + 1], nnz);
-    for (int64_t e = lo; e < hi; ++e) fn(colind[e]);
-    for (int64_t e = t_cnt[i]; e < t_cnt[i + 1]; ++e) fn(t_col[e]);
-  };
-  for (int64_t i = 0; i < m; ++i) {
-    int64_t d = 0;
-    for_neighbors(i, [&](int64_t j) {
-      if (j != i && mark[j] != i) {
-        mark[j] = i;
-        ++d;
-      }
-    });
-    deg[i] = d;
-  }
-  std::fill(mark.begin(), mark.end(), -1);
-
-  std::vector<int64_t> order;
-  order.reserve(m);
-  std::vector<uint8_t> visited(m, 0);
-  std::vector<int64_t> nbrs;
-  // nodes sorted by degree for start selection
-  std::vector<int64_t> by_deg(m);
-  for (int64_t i = 0; i < m; ++i) by_deg[i] = i;
-  std::stable_sort(by_deg.begin(), by_deg.end(),
-                   [&](int64_t a, int64_t b) { return deg[a] < deg[b]; });
-  size_t start_cursor = 0;
-  while (order.size() < static_cast<size_t>(m)) {
-    while (start_cursor < by_deg.size() && visited[by_deg[start_cursor]])
-      ++start_cursor;
-    int64_t root = by_deg[start_cursor];
-    visited[root] = 1;
-    size_t head = order.size();
-    order.push_back(root);
-    while (head < order.size()) {
-      int64_t i = order[head++];
-      nbrs.clear();
-      for_neighbors(i, [&](int64_t j) {
-        if (!visited[j]) {
-          visited[j] = 1;
-          nbrs.push_back(j);
-        }
-      });
-      std::stable_sort(nbrs.begin(), nbrs.end(), [&](int64_t a, int64_t b) {
-        return deg[a] < deg[b];
-      });
-      for (int64_t j : nbrs) order.push_back(j);
-    }
-  }
-  std::reverse(order.begin(), order.end());
-  std::vector<int64_t> rank(m);
-  for (int64_t i = 0; i < m; ++i) {
-    out_perm[i] = order[i];
-    rank[order[i]] = i;
-  }
-  int64_t h = 0;
-  for (int64_t i = 0; i < m; ++i) {
-    int64_t lo = std::min(rowptr[i], nnz), hi = std::min(rowptr[i + 1], nnz);
-    for (int64_t e = lo; e < hi; ++e)
-      h = std::max(h, std::abs(rank[i] - rank[colind[e]]));
-  }
-  return h;
-}
-
-// ------------------------------------------------------------------ //
-// Fused SpGEMM expansion stream: row-major expansion of A@B (+D) with
-// per-row column sort and dense output-slot numbering — the host side
-// of the route2-mul numeric engine build (ops/spgemm.py
-// _try_build_route).  Replaces a ~1M-element global argsort + numpy
-// glue (round-3 profile: 0.42 s of the 2k reuse-engine build) with a
-// single pass of per-row stable sorts: the expansion is naturally
-// row-ordered, so only columns within a row need sorting.
-//
-// sa[k]/sb[k] are the A/B value-source indices of expansion element k
-// in (row, col)-sorted order; D entries read the constant-1 slot a_cap
-// and the beta*d region b_cap+t (reference 4-arg fused form,
-// vendor/rocsparse/multiply_spgemm.hpp:232-317).  slots[k] is the
-// dense output slot (unique (row, col) rank).  Returns result nnz, or
-// -1 if the emitted count differs from e_total.
-extern "C" int64_t spblas_mul_expand(
-    int64_t m, int64_t a_nnz, const int64_t* a_rowptr,
-    const int32_t* a_colind, int64_t b_nnz, const int64_t* b_rowptr,
-    const int32_t* b_colind, int64_t d_nnz, const int64_t* d_rowptr,
-    const int32_t* d_colind, int64_t a_cap, int64_t b_cap,
-    int64_t e_total, int64_t* slots, int64_t* sa, int64_t* sb) {
-  std::vector<int32_t> cols;
-  std::vector<int64_t> lsa, lsb;
-  std::vector<int32_t> order;
-  int64_t out = 0;
-  int64_t slot = -1;
-  for (int64_t i = 0; i < m; ++i) {
-    cols.clear(); lsa.clear(); lsb.clear();
-    int64_t lo = std::min(a_rowptr[i], a_nnz);
-    int64_t hi = std::min(a_rowptr[i + 1], a_nnz);
-    for (int64_t e = lo; e < hi; ++e) {
-      int32_t k = a_colind[e];
-      int64_t blo = std::min(b_rowptr[k], b_nnz);
-      int64_t bhi = std::min(b_rowptr[k + 1], b_nnz);
-      for (int64_t f = blo; f < bhi; ++f) {
-        cols.push_back(b_colind[f]);
-        lsa.push_back(e);
-        lsb.push_back(f);
-      }
-    }
-    if (d_nnz) {
-      int64_t dlo = std::min(d_rowptr[i], d_nnz);
-      int64_t dhi = std::min(d_rowptr[i + 1], d_nnz);
-      for (int64_t t = dlo; t < dhi; ++t) {
-        cols.push_back(d_colind[t]);
-        lsa.push_back(a_cap);
-        lsb.push_back(b_cap + t);
-      }
-    }
-    int64_t ne = (int64_t)cols.size();
-    if (out + ne > e_total) return -1;
-    order.resize(ne);
-    for (int64_t k = 0; k < ne; ++k) order[k] = (int32_t)k;
-    std::stable_sort(order.begin(), order.end(),
-                     [&](int32_t x, int32_t y) {
-                       return cols[x] < cols[y];
-                     });
-    int32_t prev = -1;
-    bool first = true;
-    for (int64_t k = 0; k < ne; ++k) {
-      int32_t o = order[k];
-      if (first || cols[o] != prev) { ++slot; prev = cols[o]; }
-      first = false;
-      slots[out] = slot;
-      sa[out] = lsa[o];
-      sb[out] = lsb[o];
-      ++out;
-    }
-  }
-  if (out != e_total) return -1;
-  return slot + 1;
-}

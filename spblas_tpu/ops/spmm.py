@@ -3,10 +3,9 @@
 Re-design of the reference SpMM (include/spblas/algorithms/
 multiply_impl.hpp:66-92 — scalar loop with an inner j-sweep over the B row).
 The XLA form gathers whole B rows per nonzero and segment-sums them: the
-inner j-loop becomes a lane-parallel vector axis, which is exactly what the
-VPU wants.  MXU-tiled Pallas paths (band panels, streamed-B band SpMM, BSR
-blocks — spblas_tpu.kernels.banded / bsr_pallas) are selected through
-OptimizedMatrix plans.
+inner j-loop becomes a parallel vector axis.  Structured plans (DIA, SELL)
+are selected through OptimizedMatrix plans; BSR operands take the batched
+block kernel (spblas_tpu.kernels.bsr).
 """
 
 from __future__ import annotations
@@ -32,13 +31,9 @@ def spmm(a_view, b_view) -> jax.Array:
     if conj_b:
         b = jnp.conj(b)
     opt = _v.get_matrix_opt(a_view)
-    from spblas_tpu.kernels import plans as _plans
-    plan = None
-    if (opt is not None and not conj_a and _v.is_sparse(a_view)
-            and _plans.transform_safe(b)):
-        plan = _plans.optimized_plan(opt, "matmul", b.dtype)
-    if plan is not None:
-        c = _plans.plan_spmm(plan, b)
+    if opt is not None and not conj_a and _v.is_sparse(a_view):
+        from spblas_tpu.kernels import plans as _plans
+        c = _plans.plan_spmm(_plans.optimized_plan(opt), b)
     else:
         c = _spmm_base(a, b, conj_a)
     return c * (alpha_a * alpha_b)
@@ -48,7 +43,7 @@ def _spmm_base(a, b, conj_a: bool):
     from spblas_tpu.formats.bsr import BSR
     from spblas_tpu.formats.dcsr import DCSR
     if isinstance(a, BSR):
-        from spblas_tpu.kernels.bsr_pallas import bsr_spmm
+        from spblas_tpu.kernels.bsr import bsr_spmm
         vals_a = a
         if conj_a:
             import dataclasses
@@ -76,8 +71,8 @@ def _spmm_base(a, b, conj_a: bool):
                                    num_segments=a.shape[0])
     mat = jnp.conj(a) if conj_a else a
     # full-precision accumulation: library-of-record semantics, matching
-    # the reference's exact scalar loops (and TPU f32 dot otherwise
-    # defaults to bf16 passes)
+    # the reference's exact scalar loops (an f32 dot otherwise may run in
+    # TF32 on the GPU's tensor cores)
     return jnp.dot(mat, b, precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=jnp.result_type(
                        mat.dtype, b.dtype))

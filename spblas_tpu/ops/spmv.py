@@ -1,13 +1,13 @@
 """SpMV: y = A @ x for sparse A, dense x.
 
-TPU-native re-design of the reference SpMV (reference:
+Re-design of the reference SpMV (reference:
 include/spblas/algorithms/multiply_impl.hpp:33-53 — a scalar ``for_each``
 scatter loop).  Here the O(nnz) hot loop becomes gather + multiply +
-segment-sum: XLA tiles the gather and the segmented reduction onto the VPU,
-and canonical zero padding removes every mask from the numeric path.
+segment-sum, and canonical zero padding removes every mask from the
+numeric path.
 
-An optimized (Pallas / structured-plan) path hangs off ``OptimizedMatrix``
-plans — see spblas_tpu.kernels.
+An optimized (structured-plan) path hangs off ``OptimizedMatrix`` plans —
+see spblas_tpu.kernels.
 """
 
 from __future__ import annotations
@@ -35,13 +35,9 @@ def spmv(a_view, x_view) -> jax.Array:
     if conj_x:
         x = jnp.conj(x)
     opt = _v.get_matrix_opt(a_view)
-    from spblas_tpu.kernels import plans as _plans
-    plan = None
-    if (opt is not None and not conj_a and _v.is_sparse(a_view)
-            and _plans.transform_safe(x)):
-        plan = _plans.optimized_plan(opt, "matvec", x.dtype)
-    if plan is not None:
-        y = _plans.plan_spmv(plan, x)
+    if opt is not None and not conj_a and _v.is_sparse(a_view):
+        from spblas_tpu.kernels import plans as _plans
+        y = _plans.plan_spmv(_plans.optimized_plan(opt), x)
     else:
         y = _spmv_base(a, x, conj_a)
     alpha = alpha_a * alpha_x
@@ -52,7 +48,7 @@ def _spmv_base(a, x, conj_a: bool):
     from spblas_tpu.formats.bsr import BSR
     from spblas_tpu.formats.dcsr import DCSR
     if isinstance(a, BSR):
-        from spblas_tpu.kernels.bsr_pallas import bsr_spmv
+        from spblas_tpu.kernels.bsr import bsr_spmv
         vals_a = a
         if conj_a:
             import dataclasses
@@ -81,4 +77,4 @@ def _spmv_base(a, x, conj_a: bool):
                                    num_segments=a.shape[0])
     # dense matrix fallback
     mat = jnp.conj(a) if conj_a else a
-    return mat @ x
+    return jnp.matmul(mat, x, precision=jax.lax.Precision.HIGHEST)

@@ -1,8 +1,8 @@
 """Out-of-place transpose (materialized), plus the two-phase inspect stub.
 
 Re-design of the reference transpose (include/spblas/algorithms/
-transpose_impl.hpp:16-53 — two-pass count/exclusive-scan/scatter).  The
-TPU formulation is one stable lexicographic sort by (col, row); the
+transpose_impl.hpp:16-53 — two-pass count/exclusive-scan/scatter).  Here
+the formulation is one stable lexicographic sort by (col, row); the
 counting pass becomes a segment count (same two logical passes, both
 vector-parallel).  ``transpose_inspect`` returns an info whose nnz equals
 the input's (structure-preserving), mirroring transpose_impl.hpp:10-12.

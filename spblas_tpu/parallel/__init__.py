@@ -2,7 +2,7 @@
 
 The reference has no distribution of any kind (SURVEY.md §2.6); this layer
 is specified by BASELINE.json's north star — row-partitioned distributed
-SpMV/SpMM/SpGEMM with shard_map-scoped XLA collectives over ICI.
+SpMV/SpMM/SpGEMM with shard_map-scoped XLA collectives between devices.
 """
 
 from spblas_tpu.parallel.mesh import (
@@ -32,8 +32,7 @@ from spblas_tpu.parallel.trsv import (
 from spblas_tpu.parallel.spgemm import (
     DistSpgemmPlan, dist_spgemm, dist_spgemm_compute, dist_spgemm_numeric,
 )
-from spblas_tpu.parallel.route_spmv import (
-    DistRoutePlan, partition_route, dist_route_spmv,
+from spblas_tpu.parallel.sell_spmm import (
     DistSellPlan, partition_sell, dist_sell_spmm,
 )
 
@@ -52,6 +51,5 @@ __all__ = [
     "dist_triangular_solve_inspect",
     "DistSpgemmPlan", "dist_spgemm", "dist_spgemm_compute",
     "dist_spgemm_numeric",
-    "DistRoutePlan", "partition_route", "dist_route_spmv",
     "DistSellPlan", "partition_sell", "dist_sell_spmm",
 ]

@@ -132,8 +132,8 @@ def dist_add_numeric(plan: DistAddPlan, a: RowBlockCSR, b: RowBlockCSR,
         return out[None]
 
     spec = P(ROW_AXIS, None)
-    fn = jax.shard_map(body, mesh=mesh, in_specs=(spec,) * 4,
-                       out_specs=spec)
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(spec,) * 4,
+                               out_specs=spec))
     c_values = fn(plan.slot_a, plan.slot_b, a.values, b.values)
     return RowBlockCSR(values=c_values, colind=plan.c_colind,
                        rowptr=plan.c_rowptr, shape=plan.shape,

@@ -2,13 +2,14 @@
 
 The reference has no distribution layer of any kind (SURVEY.md §2.6: zero
 MPI/NCCL/Gloo occurrences; vendor queues are single-device).  Distribution
-here is a new first-class TPU-native layer: a 1-D ``jax.sharding.Mesh``
-over a row axis, ``shard_map``-scoped XLA collectives (``ppermute`` ring
-halo pipelines, ``all_gather`` fallback, ``psum``), compiled onto ICI.
+here is a new first-class layer: a 1-D ``jax.sharding.Mesh`` over a row
+axis, ``shard_map``-scoped XLA collectives (``ppermute`` ring halo
+pipelines, ``all_gather`` fallback, ``psum``), which XLA hands to the
+device interconnect.
 
-Multi-host bootstrap is ``jax.distributed.initialize()`` (call it once per
-process before :func:`make_row_mesh` on real pods); single-process tests
-fake an 8-device mesh via ``--xla_force_host_platform_device_count``.
+Multi-process bootstrap is ``jax.distributed.initialize()`` (call it once
+per process before :func:`make_row_mesh`); single-process tests fake an
+8-device mesh via ``--xla_force_host_platform_device_count``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,8 @@ def make_row_mesh(num_devices: Optional[int] = None,
                   axis_name: str = ROW_AXIS) -> Mesh:
     """1-D mesh over the row-partition axis.
 
-    On a real slice, ``jax.make_mesh`` lets XLA pick an ICI-contiguous
-    device order so the ppermute ring in the SpMV pipeline rides
-    neighbor links.
+    The cards of one host are joined all to all, so the mesh order
+    follows the algorithm alone.
     """
     if devices is not None:
         return Mesh(np.asarray(devices), (axis_name,))
@@ -72,16 +72,15 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 def ring_perm(p: int, shift: int = 1):
     """Permutation pairs (src, dst) rotating blocks by ``shift`` device
-    positions: after the permute, device d holds what device d+shift held.
-    XLA lowers this to neighbor ICI transfers."""
+    positions: after the permute, device d holds what device d+shift held."""
     return [(i, (i - shift) % p) for i in range(p)]
 
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Multi-host bootstrap: call once per process before building a mesh
-    on a real pod slice (the TPU-native stand-in for the MPI/NCCL init
-    the reference never had — SURVEY.md §2.6/§5.8).
+    """Multi-process bootstrap: call once per process before building a
+    mesh that spans processes (the stand-in for the MPI/NCCL init the
+    reference never had — SURVEY.md §2.6/§5.8).
 
     No-op when jax.distributed is already initialized or when running
     single-process (tests, single chip).

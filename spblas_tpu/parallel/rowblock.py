@@ -56,8 +56,7 @@ class RowBlockCSR:
 def local_rowptr(rowptr, d: int, mloc: int, m: int):
     """Device ``d``'s zero-based clamped sub-rowptr (mloc+1) plus its
     global entry range [lo, hi) — ONE copy of the block-slicing idiom
-    shared by partition_route / partition_sell / partition_rowblock
-    (round-4 review: three hand-rolled copies)."""
+    shared by partition_sell and partition_rowblock."""
     import numpy as _np
     r0, r1 = min(d * mloc, m), min((d + 1) * mloc, m)
     lo, hi = int(rowptr[r0]), int(rowptr[r1])

@@ -5,7 +5,7 @@ inspector-executor split the serial SpGEMM already draws
 (spblas_tpu.ops.spgemm): **symbolic planning happens once on host**, the
 repeated **numeric phase is fully distributed** — a shard_map program in
 which each device all-gathers B's values (structure is fixed by the plan;
-only values move, riding ICI) and runs a gather·mul·scatter-add into its
+only values move between devices) and runs a gather·mul·scatter-add into its
 own C row block.  This mirrors how rocSPARSE's reuse API amortizes
 symbolic cost across numeric re-runs (multiply_spgemm.hpp:150-214), with
 the plan itself sharded by C row block.
@@ -14,7 +14,7 @@ the plan itself sharded by C row block.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -25,54 +25,6 @@ from spblas_tpu import types as _t
 from spblas_tpu.formats.convert import to_csr
 from spblas_tpu.parallel.mesh import ROW_AXIS
 from spblas_tpu.parallel.rowblock import RowBlockCSR, partition_rowblock
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class DistMulPanel:
-    """One output panel of the stacked per-shard mul engine (leading
-    axis = device, sharded)."""
-
-    t1: jax.Array        # (p, nc, 8, 128) int32
-    t2: jax.Array        # (p, nc, 8, 128) int32
-    ab: jax.Array        # (p, nc) int32
-    bb: jax.Array        # (p, nc) int32
-    yb: jax.Array        # (p, nc) int32
-    fl: jax.Array        # (p, nc) int32
-    eva: jax.Array       # (p, ng) int32
-    evb: jax.Array       # (p, ng) int32
-    evw: jax.Array       # (p, ng) int32
-    evs: jax.Array       # (p, ng) int32
-    slots: int = dataclasses.field(metadata=dict(static=True))
-    out_rows: int = dataclasses.field(metadata=dict(static=True))
-    has_aux: bool = dataclasses.field(metadata=dict(static=True))
-    dist_max: int = dataclasses.field(metadata=dict(static=True))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class DistMulEngine:
-    """Stacked per-shard paned mul engines — the distributed numeric at
-    route-engine speed (VERDICT r4 #1).
-
-    Each shard runs the single-chip paned mul kernel
-    (kernels/route_mul_paned.py) over its own chunk plan; B values
-    arrive by one ``all_gather`` (structure is plan-baked, only values
-    move), the A pane is the local block.  SPMD uniformity follows the
-    DistRoutePlan recipe: COMMON (g_a, g_b, pane_rows, panel grid) and
-    per-panel chunk streams padded to the device maximum with flag-1
-    zero groups (they gather from the zero-initialised output pane and
-    publish nothing).  Reference bar: device-speed numeric reuse,
-    include/spblas/vendor/rocsparse/multiply_spgemm.hpp:150-214.
-    """
-
-    panels: Tuple[DistMulPanel, ...]
-    g_a: int = dataclasses.field(metadata=dict(static=True))
-    g_b: int = dataclasses.field(metadata=dict(static=True))
-    a_rows: int = dataclasses.field(metadata=dict(static=True))
-    b_rows_pad: int = dataclasses.field(metadata=dict(static=True))
-    pane_rows: int = dataclasses.field(metadata=dict(static=True))
-    capacity: int = dataclasses.field(metadata=dict(static=True))
 
 
 @jax.tree_util.register_dataclass
@@ -97,9 +49,6 @@ class DistSpgemmPlan:
     c_nnz: jax.Array
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
     mloc: int = dataclasses.field(metadata=dict(static=True))
-    # stacked per-shard paned mul engine (round 5); None -> the XLA
-    # gather/scatter numeric (which warns on TPU)
-    engine: object = None
 
     @property
     def p(self) -> int:
@@ -114,162 +63,8 @@ class DistSpgemmPlan:
         return int(np.asarray(self.c_nnz).sum())
 
 
-def _try_build_dist_mul_engine(per_dev, lcap_a, b_len_flat: int,
-                               ccap: int, mesh: Mesh,
-                               dtype) -> Optional[DistMulEngine]:
-    """Build the stacked per-shard paned mul engine when the operands
-    fit the single-chip engine's envelope (same gates as
-    ops/spgemm._try_build_route, applied per shard)."""
-    import os
-    from spblas_tpu.types import on_tpu
-    if os.environ.get("SPBLAS_NO_ROUTE_SPGEMM") == "1":
-        return None
-    if not (on_tpu() or os.environ.get("SPBLAS_FORCE_ROUTE_SPGEMM")):
-        return None
-    if np.dtype(dtype) != np.float32:
-        return None
-    from spblas_tpu.kernels.route_mul_paned import (
-        _CHUNKS_PER_DISPATCH, _PANE_ROWS, _PANEL_SLOTS,
-        _regroup_mul_by_pane)
-    from spblas_tpu.kernels.route2 import (ROW_WINDOW, SLOTS as _SLOTS,
-                                           _build_route2_mul_arrays,
-                                           mul_pane_g)
-    a_len = lcap_a + 1              # + the aux constant-1 slot
-    a_rows = -(-a_len // 128)
-    from spblas_tpu.ops.spgemm import _PANED_A_ROWS_MAX
-    if a_rows > _PANED_A_ROWS_MAX:
-        return None
-    exp_budget = int(os.environ.get("SPBLAS_MUL_EXPANSION_BUDGET",
-                                    64_000_000))
-    if max((len(s[0]) for s in per_dev), default=0) > exp_budget:
-        return None
-    # chunk-budget gate: total plan bytes scale with total chunks
-    # across shards (ops/spgemm.py round-4 gate, summed over devices)
-    g_b = mul_pane_g(b_len_flat)
-    win_b = g_b * _SLOTS
-    from spblas_tpu import native
-    est_total = 0
-    for (sa, sb, slots, *_rest) in per_dev:
-        if not len(slots):
-            continue
-        cellkey = ((np.asarray(slots, np.int64) >> 10)
-                   * (b_len_flat // win_b + 2)
-                   + np.asarray(sb, np.int64) // win_b)
-        srt = native.argsort_i64(cellkey)
-        if srt is not None:
-            sk = srt[1]
-            est_total += (1 + int(np.count_nonzero(np.diff(sk)))
-                          if len(sk) else 0)
-        else:
-            est_total += len(np.unique(cellkey))
-    if est_total > int(os.environ.get("SPBLAS_MUL_CHUNK_BUDGET",
-                                      400_000)):
-        return None
-
-    import time as _time
-    from spblas_tpu.utils.profiling import record_phase
-    _t0 = _time.perf_counter()
-    g_a = mul_pane_g(a_len)
-    pane_rows = _PANE_ROWS
-    last_slot = max((int(s[2][-1]) if len(s[2]) else 0)
-                    for s in per_dev)
-    panel_slots = int(os.environ.get("SPBLAS_DIST_MUL_PANEL_SLOTS",
-                                     _PANEL_SLOTS))
-    panel_slots = max(ROW_WINDOW,
-                      (panel_slots // ROW_WINDOW) * ROW_WINDOW)
-    # lockstep panel grid: every shard shares (s0, cap_p) so the
-    # stacked program has one static geometry per panel
-    host_panels = []                # list over panels of per-dev hps
-    s0 = 0
-    while s0 <= last_slot:
-        cap_p = min(panel_slots, ccap - s0)
-        subs = []
-        retry = False
-        for (sa, sb, slots, *_rest) in per_dev:
-            lo = int(np.searchsorted(slots, s0, side="left"))
-            hi = int(np.searchsorted(slots, s0 + cap_p, side="left"))
-            sub = _build_route2_mul_arrays(
-                np.asarray(slots[lo:hi], np.int64) - s0,
-                np.asarray(sa[lo:hi], np.int64),
-                np.asarray(sb[lo:hi], np.int64),
-                a_len, b_len_flat, cap_p, g_a=g_a, g_b=g_b)
-            if (sub["t1"].shape[0] > _CHUNKS_PER_DISPATCH
-                    and cap_p > ROW_WINDOW):
-                panel_slots = max(
-                    ROW_WINDOW, (cap_p // 2 // ROW_WINDOW) * ROW_WINDOW)
-                retry = True
-                break
-            subs.append(sub)
-        if retry:
-            continue
-        host_panels.append([_regroup_mul_by_pane(sub, pane_rows, cap_p)
-                            for sub in subs])
-        s0 += cap_p
-
-    from spblas_tpu.kernels.route_plan import LANES, SUBS
-    a_rows_pad = -(-a_rows // (SUBS * g_a)) * (SUBS * g_a)
-    b_rows = -(-max(b_len_flat, 1) // LANES)
-    b_rows = -(-b_rows // (SUBS * g_b)) * (SUBS * g_b)
-    b_rows_pad = -(-b_rows // pane_rows) * pane_rows
-
-    # stack each panel across devices: chunk streams padded to the
-    # device max with flag-1 zero groups (safe: they gather the
-    # zero-initialised output pane and publish nothing — vA=0)
-    from spblas_tpu.kernels.route2_kernel import CB
-    sharding = NamedSharding(mesh, P(ROW_AXIS))
-    panels = []
-    host_arrays = []
-    metas = []
-    for hps in host_panels:
-        nc_i = max(hp["arrays"][0].shape[0] for hp in hps)
-        stacked = []
-        for slot_i in range(10):
-            devs = []
-            for hp in hps:
-                arr = hp["arrays"][slot_i]
-                if slot_i < 6:      # chunk streams (t1,t2,ab,bb,yb,fl)
-                    padn = nc_i - arr.shape[0]
-                    if padn:
-                        pad = np.zeros((padn,) + arr.shape[1:],
-                                       arr.dtype)
-                        if slot_i == 5:        # fl: aux flag
-                            pad[:] = 1
-                        arr = np.concatenate([arr, pad])
-                else:               # event streams per group
-                    ng_i = nc_i // CB
-                    padn = ng_i - arr.shape[0]
-                    if padn:
-                        fillv = 0 if slot_i == 9 else -1   # evs vs ev*
-                        arr = np.concatenate(
-                            [arr, np.full((padn,), fillv, arr.dtype)])
-                devs.append(arr)
-            stacked.append(np.stack(devs))
-        host_arrays.extend(stacked)
-        metas.append(dict(
-            slots=hps[0]["slots"],
-            out_rows=max(hp["out_rows"] for hp in hps),
-            has_aux=True,           # padding groups are flag-1
-            dist_max=max(hp["dist_max"] for hp in hps)))
-    record_phase("dist_spgemm", "host_pack_s",
-                 _time.perf_counter() - _t0)
-    _t0 = _time.perf_counter()
-    flat = jax.device_put(tuple(host_arrays),
-                          (sharding,) * len(host_arrays))
-    record_phase("dist_spgemm", "upload_issue_s",
-                 _time.perf_counter() - _t0)
-    for i, meta in enumerate(metas):
-        (t1, t2, ab, bb, yb, fl, eva, evb, evw, evs) = \
-            flat[10 * i: 10 * i + 10]
-        panels.append(DistMulPanel(
-            t1=t1, t2=t2, ab=ab, bb=bb, yb=yb, fl=fl, eva=eva,
-            evb=evb, evw=evw, evs=evs, **meta))
-    return DistMulEngine(panels=tuple(panels), g_a=g_a, g_b=g_b,
-                         a_rows=a_rows_pad, b_rows_pad=b_rows_pad,
-                         pane_rows=pane_rows, capacity=ccap)
-
-
-def dist_spgemm_compute(a: RowBlockCSR, b: RowBlockCSR, mesh: Mesh,
-                        reuse: bool = True) -> DistSpgemmPlan:
+def dist_spgemm_compute(a: RowBlockCSR, b: RowBlockCSR, mesh: Mesh
+                        ) -> DistSpgemmPlan:
     """Host-side symbolic phase (inspect): Gustavson expansion + sort per
     C row block, emitted as sharded gather maps.
 
@@ -373,16 +168,6 @@ def dist_spgemm_compute(a: RowBlockCSR, b: RowBlockCSR, mesh: Mesh,
             f"dist_spgemm: flattened B index space "
             f"{int(P_src_b.max()) + 1} exceeds int32; reduce per-device "
             "B capacity or the device count")
-    engine = None
-    if reuse:
-        import time as _time
-        from spblas_tpu.utils.profiling import record_phase
-        _t0 = _time.perf_counter()
-        engine = _try_build_dist_mul_engine(
-            per_dev, a.local_capacity, p * lcap_b, ccap, mesh,
-            np.result_type(np.dtype(a.dtype), np.dtype(b.dtype)))
-        record_phase("dist_spgemm", "engine_build_s",
-                     _time.perf_counter() - _t0)
     shard2 = NamedSharding(mesh, P(ROW_AXIS, None))
     shard1 = NamedSharding(mesh, P(ROW_AXIS))
     dput = jax.device_put
@@ -394,7 +179,7 @@ def dist_spgemm_compute(a: RowBlockCSR, b: RowBlockCSR, mesh: Mesh,
         c_rowptr=dput(jnp.asarray(P_rptr, dtype=_t.offset_dtype), shard2),
         c_colind=dput(jnp.asarray(P_cols, dtype=_t.index_dtype), shard2),
         c_nnz=dput(jnp.asarray(P_nnz), shard1),
-        shape=(m, n), mloc=mloc, engine=engine)
+        shape=(m, n), mloc=mloc)
 
 
 def _numeric_kernel(src_a, src_b, valid, slot, a_values, b_values, *,
@@ -409,102 +194,21 @@ def _numeric_kernel(src_a, src_b, valid, slot, a_values, b_values, *,
     return out[None]
 
 
-def _dist_engine_numeric(plan: DistSpgemmPlan, a: RowBlockCSR,
-                         b: RowBlockCSR, mesh: Mesh) -> jax.Array:
-    """Stacked-engine numeric: per-shard paned mul dispatches over the
-    all-gathered B values (one collective; everything else is the
-    single-chip Pallas engine on local data)."""
-    from spblas_tpu.kernels.route_mul_paned import (MulPanedPanel,
-                                                   _paned_mul_dispatch)
-    from spblas_tpu.kernels.route_plan import LANES
-    from spblas_tpu.types import on_tpu
-    eng: DistMulEngine = plan.engine
-    interpret = not on_tpu()
-    ccap = plan.c_capacity
-
-    def body(av, bv, *arrs):
-        bg = jax.lax.all_gather(bv, ROW_AXIS).reshape(-1)
-        a_arr = jnp.concatenate([av[0].astype(jnp.float32),
-                                 jnp.ones((1,), jnp.float32)])
-        A2 = jnp.pad(a_arr, (0, eng.a_rows * LANES - a_arr.shape[0])
-                     ).reshape(eng.a_rows, LANES)
-        B2 = jnp.pad(bg.astype(jnp.float32),
-                     (0, eng.b_rows_pad * LANES - bg.shape[0])
-                     ).reshape(eng.b_rows_pad, LANES)
-        parts = []
-        covered = 0
-        for i, pan in enumerate(eng.panels):
-            (t1, t2, ab, bb, yb, fl, eva, evb, evw, evs) = \
-                arrs[10 * i: 10 * i + 10]
-            local = MulPanedPanel(
-                t1=t1[0], t2=t2[0], ab=ab[0], bb=bb[0], yb=yb[0],
-                fl=fl[0], eva=eva[0], evb=evb[0], evw=evw[0],
-                evs=evs[0], slots=pan.slots, out_rows=pan.out_rows,
-                has_aux=pan.has_aux, dist_max=pan.dist_max)
-            yp = _paned_mul_dispatch(local, A2, B2, g_a=eng.g_a,
-                                     g_b=eng.g_b,
-                                     pane_rows=eng.pane_rows,
-                                     interpret=interpret)
-            parts.append(jax.lax.slice(yp.reshape(-1), (0,),
-                                       (pan.slots,)))
-            covered += pan.slots
-        out = jnp.concatenate(parts) if parts else \
-            jnp.zeros((0,), jnp.float32)
-        if covered < ccap:
-            out = jnp.pad(out, (0, ccap - covered))
-        return out[:ccap][None]
-
-    spec2 = P(ROW_AXIS, None)
-    panel_arrs = [arr for pan in eng.panels
-                  for arr in (pan.t1, pan.t2, pan.ab, pan.bb, pan.yb,
-                              pan.fl, pan.eva, pan.evb, pan.evw,
-                              pan.evs)]
-    fn = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(spec2, spec2) + (P(ROW_AXIS),) * len(panel_arrs),
-        out_specs=spec2, check_vma=False)
-    return fn(a.values, b.values, *panel_arrs)
-
-
 def dist_spgemm_numeric(plan: DistSpgemmPlan, a: RowBlockCSR,
                         b: RowBlockCSR, mesh: Mesh) -> RowBlockCSR:
     """Distributed numeric phase (execute): re-runnable with new values of
-    unchanged sparsity — the distributed ``multiply_numeric``.
-
-    With a stacked mul engine on the plan (the TPU default from
-    ``dist_spgemm_compute(..., reuse=True)``) each shard runs the
-    fused paned Pallas numeric over the all-gathered B values.  The
-    engine-less fallback is gather + scatter-add over the expansion
-    maps — element-gather speed on TPU, where it WARNS like dist_spmv.
-    """
+    unchanged sparsity — the distributed ``multiply_numeric``: gather +
+    scatter-add over the expansion maps, B's values all-gathered."""
     from spblas_tpu.parallel.mesh import check_mesh_matches
     check_mesh_matches(plan.p, mesh, "dist_spgemm_numeric")
-    if plan.engine is not None:
-        if (np.dtype(a.dtype) == np.float32
-                and np.dtype(b.dtype) == np.float32):
-            c_values = _dist_engine_numeric(plan, a, b, mesh)
-            return RowBlockCSR(values=c_values, colind=plan.c_colind,
-                               rowptr=plan.c_rowptr, shape=plan.shape,
-                               mloc=plan.mloc)
-        # non-f32 fill-time values would be silently truncated by the
-        # f32 engine — take the dtype-preserving XLA path below
-    import warnings
-    from spblas_tpu.types import on_tpu
-    if on_tpu():
-        warnings.warn(
-            "dist_spgemm_numeric: the sharded numeric kernel is XLA "
-            "gather + scatter-add (~0.13 G elem/s on TPU); for "
-            "repeated numerics at route-engine speed run the "
-            "single-chip SpgemmState per shard", UserWarning,
-            stacklevel=2)
     ccap = plan.c_capacity
     spec2 = P(ROW_AXIS, None)
-    fn = jax.shard_map(
+    fn = jax.jit(jax.shard_map(
         lambda sa, sb, vl, sl, av, bv: _numeric_kernel(
             sa, sb, vl, sl, av, bv, ccap=ccap),
         mesh=mesh,
         in_specs=(spec2,) * 4 + (spec2, spec2),
-        out_specs=spec2)
+        out_specs=spec2))
     c_values = fn(plan.src_a, plan.src_b, plan.valid, plan.slot,
                   a.values, b.values)
     return RowBlockCSR(values=c_values, colind=plan.c_colind,
@@ -519,5 +223,5 @@ def dist_spgemm(a, b, mesh: Mesh) -> RowBlockCSR:
         a = partition_rowblock(to_csr(a), mesh)
     if not isinstance(b, RowBlockCSR):
         b = partition_rowblock(to_csr(b), mesh)
-    plan = dist_spgemm_compute(a, b, mesh, reuse=False)  # one-shot
+    plan = dist_spgemm_compute(a, b, mesh)
     return dist_spgemm_numeric(plan, a, b, mesh)

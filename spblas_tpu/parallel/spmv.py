@@ -5,22 +5,16 @@ the reference delegates all device work to single-queue vendor libraries.
 Specified by BASELINE.json's north-star: row-partitioned distributed
 SpMV with halo collectives overlapped with local compute.
 
-**TPU entry point: use the chooser.**  ``partition_spmv`` picks the
-fast per-shard execution for the pattern (banded halo pipeline,
-per-shard ROUTE2 plans for unstructured, generic gather blocks on
-CPU-class backends) and ``dist_plan_spmv`` runs it.  The raw
-``dist_spmv`` below executes gather·mul·segment-sum local blocks —
-on TPU that is the ~0.13 G elem/s XLA element-gather wall
-(PERF_NOTES.md), 2-3 orders of magnitude under the ROUTE2 path, and
-it WARNS when invoked there.  It remains the reference/debug path and
-the CPU default.
+``partition_spmv`` / ``partition_spmm`` return a ``(kind, plan)`` pair
+(generic gather blocks by default; the banded halo pipeline or per-shard
+SELL on request) and ``dist_plan_spmv`` / ``dist_plan_spmm`` run it.
 
 Two ``dist_spmv`` strategies, both inside ``shard_map``:
 
 * ``ring``  — systolic pipeline: x stays block-sharded; at step s every
   device multiplies its (rotation-scheduled) local block s against the x
   chunk it currently holds, while ``ppermute`` rotates chunks one hop
-  around the ICI ring.  Memory per device is O(n/p); XLA overlaps the
+  around the ring.  Memory per device is O(n/p); XLA overlaps the
   permute with the block compute (the collective and the segment-sum are
   data-independent within a step).
 * ``allgather`` — gather x fully, then one local SpMV over the
@@ -90,89 +84,28 @@ def _allgather_kernel(values, rowloc, colloc, x, *, p, mloc, nloc):
 def dist_spmv(a: DistCSR, x: jax.Array, mesh, strategy: str = "ring"
               ) -> jax.Array:
     """y = A @ x, A row-partitioned, x/y block-sharded over the mesh —
-    the GENERIC gather-block path (reference/debug; CPU default).
-
-    On TPU this runs at the XLA element-gather wall and warns — use
-    :func:`partition_spmv` + :func:`dist_plan_spmv` instead (VERDICT
-    r3 #7).  Returns y of padded length p*mloc sharded over ``rows``;
-    use ``gather_result`` to strip padding.
-    """
-    _warn_if_tpu("dist_spmv")
+    the generic gather-block path.  Returns y of padded length p*mloc
+    sharded over ``rows``; use ``gather_result`` to strip padding."""
     return _dist_apply(a, x, mesh, strategy)
 
 
-def _warn_if_tpu(name: str) -> None:
-    import warnings
-    from spblas_tpu.types import on_tpu
-    if on_tpu():
-        warnings.warn(
-            f"{name}: the generic gather-block kernel runs at the XLA "
-            "element-gather wall on TPU (~0.13 G elem/s); use "
-            "partition_spmv(a, mesh) + dist_plan_spmv for the "
-            "per-shard ROUTE2/banded fast paths", stacklevel=3)
-
-
 # ------------------------------------------------------------------ #
-# distributed matvec chooser — the TPU default entry (VERDICT r3 #7)
+# distributed matvec chooser
 # ------------------------------------------------------------------ #
 
-def _banded_enough(a) -> bool:
-    """Shared band gate for the matvec AND matmul choosers (one copy —
-    tuning one and not the other silently desynchronizes them): band
-    panels pay 2*bw+1 slots/row, worth it when the band is mostly dense
-    (same spirit as the single-chip chooser)."""
-    import numpy as np
-    from spblas_tpu import native
-
-    m, n = a.shape
-    if m != n:
-        return False
-    nnz = int(a.nnz)
-    if nnz == 0:
-        return False
-    colind = np.asarray(a.colind)[:nnz].astype(np.int64)
-    rowptr = np.minimum(np.asarray(a.rowptr).astype(np.int64), nnz)
-    rows = native.expand_rowptr(m, nnz, rowptr)
-    if rows is None:                    # no native lib: numpy fallback
-        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(rowptr))
-    bw = int(np.abs(colind - rows).max())
-    band_fill = nnz / max(m * (2 * bw + 1), 1)
-    return bw <= 512 and band_fill >= 0.25
-
-
-def partition_spmv(a, mesh, prefer: str | None = None):
+def partition_spmv(a, mesh, prefer: str = "csr"):
     """Distributed matvec chooser: returns ``(kind, plan)``.
 
-    ``kind`` is one of ``"band"`` (halo band pipeline for narrow-band
-    patterns), ``"route"`` (per-shard ROUTE2 plans — the unstructured
-    TPU fast path), or ``"csr"`` (generic gather blocks — the CPU
-    default).  ``prefer`` forces a kind (used by tests/dryrun to
-    exercise the TPU selection on CPU meshes).  Run the result with
-    :func:`dist_plan_spmv`; shard operands with
+    ``kind`` is ``"csr"`` (generic gather blocks, the default) or
+    ``"band"`` (halo band pipeline for narrow-band patterns).  Run the
+    result with :func:`dist_plan_spmv`; shard operands with
     :func:`partition_spmv_vector`."""
     from spblas_tpu.formats.convert import to_csr
-    from spblas_tpu.types import on_tpu
 
     a = to_csr(a)
-    if prefer is None:
-        if not on_tpu():
-            prefer = "csr"
-        elif (jnp.issubdtype(a.dtype, jnp.complexfloating)
-              or a.dtype == jnp.float64):
-            # the band/route/sell shard kernels compute in f32 — keep
-            # complex/f64 on the dtype-preserving gather blocks (the
-            # single-chip chooser's policy, kernels/plans.py; round-4
-            # review: complex panels silently lost their imaginary
-            # part here)
-            prefer = "csr"
-        else:
-            prefer = "band" if _banded_enough(a) else "route"
     if prefer == "band":
         from spblas_tpu.parallel.banded import partition_band
         return "band", partition_band(a, mesh)
-    if prefer == "route":
-        from spblas_tpu.parallel.route_spmv import partition_route
-        return "route", partition_route(a, mesh)
     if prefer == "csr":
         from spblas_tpu.parallel.dist_csr import partition_csr
         return "csr", partition_csr(a, mesh)
@@ -200,59 +133,37 @@ def dist_plan_spmv(kind_plan, x, mesh):
     if kind == "band":
         from spblas_tpu.parallel.banded import dist_band_spmv
         return dist_band_spmv(plan, x, mesh)
-    if kind == "route":
-        from spblas_tpu.parallel.route_spmv import dist_route_spmv
-        return dist_route_spmv(plan, x, mesh)
     return _dist_apply(plan, x, mesh, "ring")
 
 
 def dist_spmm(a: DistCSR, b: jax.Array, mesh, strategy: str = "ring"
               ) -> jax.Array:
     """C = A @ B for dense B (p*nloc, k) row-sharded; C is (p*mloc, k).
-
-    Generic gather-block kernel — the CPU-class default.  On TPU use
-    :func:`partition_spmm` + :func:`dist_plan_spmm` (per-shard
-    band/SELL fast paths)."""
-    _warn_if_tpu("dist_spmm")
+    Generic gather-block kernel."""
     return _dist_apply(a, b, mesh, strategy)
 
 
 # ------------------------------------------------------------------ #
-# distributed matmul chooser — the TPU default entry (mirrors the
-# matvec chooser above; reference bar: vendor SpMM is one entry point
-# for every pattern, cusparse/detail/spmm_impl.hpp)
+# distributed matmul chooser (mirrors the matvec chooser; reference
+# bar: vendor SpMM is one entry point for every pattern,
+# cusparse/detail/spmm_impl.hpp)
 # ------------------------------------------------------------------ #
 
-def partition_spmm(a, mesh, prefer: str | None = None):
+def partition_spmm(a, mesh, prefer: str = "csr"):
     """Distributed matmul chooser: returns ``(kind, plan)``.
 
-    ``kind`` is ``"band"`` (halo band pipeline), ``"sell"`` (per-shard
-    SELL row-gather buckets — the unstructured TPU fast path for dense
-    operands), or ``"csr"`` (generic gather blocks — the CPU default).
-    Run with :func:`dist_plan_spmm`; shard the dense operand with
-    :func:`partition_spmm_operand`."""
+    ``kind`` is ``"csr"`` (generic gather blocks, the default),
+    ``"band"`` (halo band pipeline) or ``"sell"`` (per-shard SELL
+    row-gather buckets).  Run with :func:`dist_plan_spmm`; shard the
+    dense operand with :func:`partition_spmm_operand`."""
     from spblas_tpu.formats.convert import to_csr
-    from spblas_tpu.types import on_tpu
 
     a = to_csr(a)
-    if prefer is None:
-        if not on_tpu():
-            prefer = "csr"
-        elif (jnp.issubdtype(a.dtype, jnp.complexfloating)
-              or a.dtype == jnp.float64):
-            # the band/route/sell shard kernels compute in f32 — keep
-            # complex/f64 on the dtype-preserving gather blocks (the
-            # single-chip chooser's policy, kernels/plans.py; round-4
-            # review: complex panels silently lost their imaginary
-            # part here)
-            prefer = "csr"
-        else:
-            prefer = "band" if _banded_enough(a) else "sell"
     if prefer == "band":
         from spblas_tpu.parallel.banded import partition_band
         return "band", partition_band(a, mesh)
     if prefer == "sell":
-        from spblas_tpu.parallel.route_spmv import partition_sell
+        from spblas_tpu.parallel.sell_spmm import partition_sell
         return "sell", partition_sell(a, mesh)
     if prefer == "csr":
         from spblas_tpu.parallel.dist_csr import partition_csr
@@ -283,7 +194,7 @@ def dist_plan_spmm(kind_plan, b, mesh):
         from spblas_tpu.parallel.banded import dist_band_spmm
         return dist_band_spmm(plan, b, mesh)
     if kind == "sell":
-        from spblas_tpu.parallel.route_spmv import dist_sell_spmm
+        from spblas_tpu.parallel.sell_spmm import dist_sell_spmm
         return dist_sell_spmm(plan, b, mesh)
     return _dist_apply(plan, b, mesh, "ring")
 
@@ -305,6 +216,6 @@ def _dist_apply(a: DistCSR, x, mesh, strategy):
         kern = partial(_allgather_kernel, p=p, mloc=mloc, nloc=nloc)
     else:
         raise ValueError(f"unknown strategy {strategy!r}")
-    fn = jax.shard_map(kern, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_spec)
+    fn = jax.jit(jax.shard_map(kern, mesh=mesh, in_specs=in_specs,
+                               out_specs=out_spec))
     return fn(a.values, a.rowloc, a.colloc, x)

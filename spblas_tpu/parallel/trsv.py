@@ -212,7 +212,7 @@ def dist_triangular_solve(plan: DistTrsvPlan, b: jax.Array, mesh: Mesh
     in_specs = tuple(spec[a.ndim] for a in (
         plan.rows, plan.eidx, plan.evalid, plan.cols, plan.ldiag,
         plan.lvals, plan.ovals, plan.ocols, plan.orows)) + (P(ROW_AXIS),)
-    fn = jax.shard_map(kernel, mesh=mesh, in_specs=in_specs,
-                       out_specs=P(ROW_AXIS), check_vma=False)
+    fn = jax.jit(jax.shard_map(kernel, mesh=mesh, in_specs=in_specs,
+                               out_specs=P(ROW_AXIS), check_vma=False))
     return fn(plan.rows, plan.eidx, plan.evalid, plan.cols, plan.ldiag,
               plan.lvals, plan.ovals, plan.ocols, plan.orows, b)

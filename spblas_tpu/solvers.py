@@ -1,7 +1,7 @@
 """Iterative solvers on top of the sparse ops — jit-compatible loops.
 
 Beyond the reference's scope (it stops at the BLAS layer), but the
-natural consumer of a TPU-native sparse framework: every solver below is
+natural consumer of a sparse framework: every solver below is
 a pure jax function over the framework's containers/plans, so it jits,
 differentiates, and shards like any other jax code.
 
@@ -75,8 +75,8 @@ def power_method(a, n: int, iters: int = 100,
     if key is None:
         key = jax.random.PRNGKey(0)
     # iterate in the operator's dtype — a hardcoded f32 carry made the
-    # fori_loop reject f64/complex operators at trace time (round-4
-    # review; A@v promotes the carry)
+    # fori_loop reject f64/complex operators at trace time (A@v
+    # promotes the carry)
     op_dtype = jnp.result_type(getattr(a, "dtype", jnp.float32))
     real = jnp.finfo(op_dtype).dtype if jnp.issubdtype(
         op_dtype, jnp.floating) else jnp.float32

@@ -1,10 +1,9 @@
 """Global type configuration for spblas_tpu.
 
-TPU-first equivalents of the reference's ``spblas::index_t`` / ``offset_t``
-globals (reference: include/spblas/detail/types.hpp:28-31).  The vendor
-backends in the reference all narrow indices to 32 bits
-(vendor/rocsparse/types.hpp:11-12, vendor/cusparse/types.hpp:12-13); we follow
-that precedent because int32 is the native TPU index width.
+Equivalents of the reference's ``spblas::index_t`` / ``offset_t`` globals
+(reference: include/spblas/detail/types.hpp:28-31).  The vendor backends in
+the reference all narrow indices to 32 bits (vendor/rocsparse/types.hpp:11-12,
+vendor/cusparse/types.hpp:12-13); we follow that precedent.
 
 Unlike the reference (compile-time ``#define`` forest), configuration here is
 a small runtime dataclass — see SURVEY.md §5.6.
@@ -29,19 +28,13 @@ real_dtype = jnp.float32
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Runtime knobs for kernels and plans.
+    """Runtime knobs for plans.
 
     The reference's only runtime knobs are execution-policy objects
     (vendor/onemkl_sycl/detail/execution_policy.hpp:10-48); device placement
-    in JAX is implicit via sharding, so this holds tiling knobs only.
+    in JAX is implicit via sharding, so this holds capacity policy only.
     """
 
-    # Pallas row-block height for ELL/SELL plans (sublane multiple).
-    row_block: int = 8
-    # Lane width; last-dim tiles are always 128 on TPU.
-    lane: int = 128
-    # MXU tile edge for BSR block kernels.
-    mxu_tile: int = 128
     # Quantize capacities to powers of two to limit recompilation
     # (SURVEY.md §7: dynamic nnz vs static shapes).
     capacity_quantum: bool = True
@@ -76,9 +69,8 @@ def check_values_dtype(values, where: str) -> None:
     float64/complex128 to 32 bits whenever x64 is disabled; doing that
     silently at a container constructor violates the reference contract,
     so: raise under ``SPBLAS_STRICT_DTYPE=1``, warn otherwise.  With
-    ``jax.config.update("jax_enable_x64", True)`` the CPU/XLA base paths
-    run genuinely in f64 (Pallas TPU kernels stay f32 and the plan
-    chooser keeps 64-bit containers off them).
+    ``jax.config.update("jax_enable_x64", True)`` every path runs
+    genuinely in f64.
     """
     dt = getattr(values, "dtype", None)
     if dt is None or str(dt) not in _WIDE_SCALARS:
@@ -89,45 +81,8 @@ def check_values_dtype(values, where: str) -> None:
         return
     msg = (f"{where}: {dt} values are narrowed to 32 bits because jax "
            "x64 is disabled. Enable jax_enable_x64 to keep 64-bit "
-           "precision on the CPU/XLA paths, or set SPBLAS_STRICT_DTYPE=1 "
+           "precision, or set SPBLAS_STRICT_DTYPE=1 "
            "to make this an error.")
     if os.environ.get("SPBLAS_STRICT_DTYPE") == "1":
         raise TypeError(msg)
     warnings.warn(msg, UserWarning, stacklevel=3)
-
-
-def on_tpu() -> bool:
-    """True when the default jax backend is a TPU — the shared platform
-    probe behind plan selection and kernel interpret-mode defaults."""
-    import jax
-
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except RuntimeError:
-        return False
-
-
-def no_x64(fn):
-    """Trace a Pallas dispatch with ``jax_enable_x64`` forced OFF.
-
-    The fast kernels are f32-only (the plan choosers dtype-gate them),
-    but a user running under ``jax_enable_x64`` still TRACES them with
-    x64 semantics, where the Python-int constants in BlockSpec index
-    maps canonicalize to i64 and Mosaic rejects the lowered map
-    (``'func.return'(i64, i64)`` legalization failure — found by the
-    round-5 spmv_f64 bench section, whose f32 comparison leg runs with
-    x64 globally on).  Every kernel input is already a concrete
-    f32/i32 array, so trace-time re-canonicalization only affects
-    Python scalars; wrapping the dispatch is equivalent to tracing in
-    the default-x32 world the kernels were written for.
-    """
-    import functools
-
-    import jax
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with jax.enable_x64(False):
-            return fn(*args, **kwargs)
-
-    return wrapped

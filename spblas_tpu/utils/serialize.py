@@ -49,7 +49,7 @@ def _collect(plan, prefix, arrays, static, classes, tuples):
             _collect(v, key + "/", arrays, static, classes,
                      tuples)                            # nested plan
         elif isinstance(v, tuple):
-            # tuple of panels / bucket arrays (RoutePanedPlan.panels,
+            # tuple of bucket arrays (SellPlan.buckets,
             # DistSellPlan.bucket_values): one '/i' entry per element
             tuples[key] = len(v)
             for i, x in enumerate(v):
@@ -65,7 +65,7 @@ def _collect(plan, prefix, arrays, static, classes, tuples):
 
 def save_plan(path: str, plan) -> None:
     """Persist any registered-dataclass plan (SpgemmPlan, TrsvPlan,
-    EllPlan, DiaPlan, DistSpgemmPlan, PermutedBandPlan, ...) to ``path``
+    EllPlan, DiaPlan, SellPlan, DistSpgemmPlan, ...) to ``path``
     (.npz).  Nested plan dataclasses are flattened with '/'-joined
     keys."""
     if not dataclasses.is_dataclass(plan):
@@ -94,9 +94,7 @@ def _rebuild(prefix, z, classes, static, tuples):
         key = f"{prefix}{f.name}"
         if f.metadata.get("static"):
             # static fields added after a plan was saved fall back to
-            # the dataclass default (e.g. pre-round-4 Route2Plan files
-            # lack row_window_mult/has_hub — the versioning contract in
-            # kernels/route2.py's field comments)
+            # the dataclass default
             if key in static:
                 kwargs[f.name] = _from_jsonable(static[key])
         elif key in tuples:
@@ -117,8 +115,8 @@ def _rebuild(prefix, z, classes, static, tuples):
         else:
             # _collect omits None-valued fields, so absence means the
             # saved value WAS None — reconstruct it explicitly (fields
-            # without a default, e.g. RoutePlan.aux_plan, would
-            # otherwise make cls(**kwargs) raise TypeError)
+            # without a default would otherwise make cls(**kwargs)
+            # raise TypeError)
             kwargs[f.name] = None
     return cls(**kwargs)
 

@@ -1,10 +1,10 @@
 """Lazy tensor views: scaled / conjugated / transposed / optimized.
 
-TPU-native re-design of the reference's view layer
+Re-design of the reference's view layer
 (include/spblas/views/scaled_view_impl.hpp:20-223,
 conjugated_view_impl.hpp:20-197, algorithms/transposed.hpp:7-22,
 views/matrix_opt_impl.hpp:14-97).  The reference re-exposes every iteration
-CPO through the wrapper; on TPU the wrappers are tiny pytrees carrying
+CPO through the wrapper; here the wrappers are tiny pytrees carrying
 (alpha, conj-flag) that ops *fold into their kernels* — the runtime analogue
 of ``get_scaling_factor`` / ``is_conjugated`` / ``get_ultimate_base``
 (detail/view_inspectors.hpp:22-111).
@@ -78,7 +78,7 @@ def transposed(tensor):
 
     CSR(m, n) reinterpreted as CSC(n, m) over the *same* arrays, and vice
     versa — the reference's format flip, preserved verbatim because it is
-    already a free TPU operation (no data movement).
+    already free (no data movement).
     """
     if isinstance(tensor, ScaledView):
         return ScaledView(alpha=tensor.alpha, base=transposed(tensor.base))

@@ -1,4 +1,4 @@
-"""Autodiff through sparse ops — a TPU-native capability the C++
+"""Autodiff through sparse ops — a capability the C++
 reference cannot offer.  The jnp-based numeric paths (gather + segment
 reductions) are differentiable by construction; these tests pin that
 down against dense-oracle gradients."""
@@ -91,23 +91,20 @@ def test_grad_spgemm_numeric():
     np.testing.assert_allclose(float(g[0]), fd, rtol=5e-2, atol=1e-3)
 
 
-def test_grad_spgemm_numeric_route_engine_reroutes(monkeypatch):
-    """jax.grad through multiply_fill with a fused route engine must
-    reroute to the differentiable XLA numeric (the engine kernel has no
-    VJP) instead of failing loudly — advisor round-2 low finding."""
+def test_grad_spgemm_state_numeric():
+    """jax.grad through the reuse numeric (SpgemmState) with new values
+    matches a finite difference."""
     import dataclasses
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_SPGEMM", "1")
     a = gen.generate_csr(24, 24, 120, seed=7)
     b = gen.generate_csr(24, 24, 120, seed=8)
-    info = sp.multiply_compute(a, b)
-    assert info.plan.route is not None
+    state = sp.SpgemmState()
+    sp.multiply_symbolic_compute(state, a, b)
 
     def loss(av):
         a2 = dataclasses.replace(a, values=av)
-        c = sp.multiply_fill(info, a2, b)
+        c = sp.multiply_numeric(state, a2, b)
         return jnp.sum(c.values ** 2)
 
-    # concrete path still uses the engine; grad reroutes and matches fd
     g = jax.grad(loss)(a.values)
     assert np.isfinite(np.asarray(g)).all()
     eps = 1e-2
@@ -136,45 +133,31 @@ def test_grad_triangular_solve():
                                rtol=1e-3, atol=1e-4)
 
 
-def test_grad_band_spmv_pallas():
-    """Custom VJP for the Pallas band kernel (overlap-add adjoint)."""
-    from spblas_tpu.kernels.banded import band_spmv_ad, build_band_plan
+def test_grad_band_spmv():
+    """Autodiff of the distributed band sweep (plain jnp panels + halo
+    ppermutes) gives the dense adjoint dx = 2 A^T A x."""
+    from spblas_tpu.parallel import (dist_band_spmv, make_row_mesh,
+                                     partition_band, partition_band_vector)
     from spblas_tpu.utils.generate import generate_banded_csr
-    m = 300
+    m = 512
+    mesh = make_row_mesh(2)
     a = generate_banded_csr(m, m, 11, seed=0)
-    plan = build_band_plan(a)
+    plan = partition_band(a, mesh)
     dense = np.asarray(a.todense())
-    x = jnp.asarray(np.random.default_rng(1).standard_normal(m)
-                    .astype(np.float32))
+    x = np.random.default_rng(1).standard_normal(m).astype(np.float32)
+    xd = partition_band_vector(jnp.asarray(x), plan, mesh)
 
-    def loss(plan, x):
-        return jnp.sum(band_spmv_ad(plan, x) ** 2)
+    def loss(v):
+        return jnp.sum(dist_band_spmv(plan, v, mesh) ** 2)
 
-    gplan, gx = jax.grad(loss, argnums=(0, 1))(plan, x)
-    exp_dx = 2 * dense.T @ (dense @ np.asarray(x))
-    np.testing.assert_allclose(np.asarray(gx), exp_dx, rtol=1e-4,
-                               atol=1e-3)
-    # dpanels spot check: dA[i,j] = 2 (Ax)[i] x[j]
-    y2 = 2 * dense @ np.asarray(x)
-    i, j = 5, 7
-    c = j - (i // 128) * 128 + plan.pad_l
-    np.testing.assert_allclose(
-        float(np.asarray(gplan.panels)[i, c]),
-        y2[i] * float(x[j]), rtol=1e-4)
+    gx = np.asarray(jax.grad(loss)(xd))[:m]
+    exp_dx = 2 * dense.T @ (dense @ x)
+    np.testing.assert_allclose(gx, exp_dx, rtol=1e-4, atol=1e-3)
 
 
-def test_grad_through_matrix_opt_plan_path(monkeypatch):
-    """grad/vmap over an optimized-matrix multiply must reroute to the
-    differentiable base path even when the cached plan is a
-    non-differentiable Pallas kernel (route/band)."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    import spblas_tpu as sp
-    from spblas_tpu.kernels import plans as _plans
-    from spblas_tpu.utils import generate as gen
-
-    monkeypatch.setattr(_plans, "_on_tpu", lambda: True)
+def test_grad_through_matrix_opt_plan_path():
+    """grad/vmap over an optimized-matrix multiply differentiate through
+    the cached SELL plan."""
     a = gen.generate_csr(800, 800, 6000, seed=4)
     ao = sp.matrix_opt(a)
     x = jnp.asarray(np.random.default_rng(0)

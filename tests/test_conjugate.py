@@ -79,53 +79,47 @@ def test_conjugate_transpose_is_adjoint():
     assert_close(np.asarray(y), expected, factor=FACTOR)
 
 
-def test_complex_matrix_opt_plan_is_complex_safe(monkeypatch):
-    """The plan chooser must not route complex matrices into the
-    real-only Pallas kernels, even on TPU."""
+def test_complex_matrix_opt_plan_is_complex_safe():
+    """Complex banded matrices take the dtype-preserving DIA plan."""
     from spblas_tpu.kernels import plans
-    monkeypatch.setattr(plans, "_on_tpu", lambda: True)
     from spblas_tpu.utils.generate import generate_banded_csr
     import numpy as np
     a = generate_banded_csr(128, 128, 5, seed=0, dtype=np.complex64)
     kind, plan = plans.build_matvec_plan(a)
-    # complex64 banded now routes to the two-real-plane band plan
-    # (kind band_cx); the point stands that complex data never reaches a
-    # real-only kernel un-split
-    assert kind in ("dia", "sell", "band_cx")
+    assert kind == "dia"
     import jax.numpy as jnp
     x = (np.random.default_rng(1).standard_normal(128)
          + 1j * np.random.default_rng(2).standard_normal(128)
          ).astype(np.complex64)
     y = plans.plan_spmv((kind, plan), jnp.asarray(x))
+    assert y.dtype == jnp.complex64
     expected = np.asarray(a.todense()) @ x
     assert_close(np.asarray(y), expected, factor=FACTOR)
 
 
-def test_complex_banded_band_cx_plan(monkeypatch):
-    """complex64 banded matrices route to the two-plane band-panel plan
-    on TPU (VERDICT round-1 item 10) and match the dense oracle."""
+def test_complex_banded_band_cx_plan():
+    """complex64 banded matrices keep one complex DIA plan for SpMV and
+    SpMM and match the dense oracle."""
     import numpy as np
     import jax.numpy as jnp
+    import spblas_tpu as sp
     from spblas_tpu.kernels import plans
     from spblas_tpu.utils import generate as gen
     from tests.util import assert_close
 
-    monkeypatch.setattr(plans, "_on_tpu", lambda: True)
     a = gen.generate_banded_csr(512, 512, 9, seed=11,
                                 dtype=np.complex64)
-    kind, plan = plans.build_matvec_plan(a)
-    assert kind == "band_cx", kind
+    opt = sp.matrix_opt(a)
     rng = np.random.default_rng(3)
     x = (rng.standard_normal(512) + 1j * rng.standard_normal(512)
          ).astype(np.complex64)
-    y = np.asarray(plans.plan_spmv((kind, plan), jnp.asarray(x)))
+    y = np.asarray(sp.multiply(opt, jnp.asarray(x)))
+    assert plans.optimized_plan(opt)[0] == "dia"
     want = np.asarray(a.todense()) @ x
     assert_close(y, want, factor=256, abs_floor=1e-2)
 
-    kind2, plan2 = plans.build_matmul_plan(a)
-    assert kind2 == "band_cx"
     b = (rng.standard_normal((512, 8)) + 1j * rng.standard_normal((512, 8))
          ).astype(np.complex64)
-    c = np.asarray(plans.plan_spmm((kind2, plan2), jnp.asarray(b)))
+    c = np.asarray(sp.multiply(opt, jnp.asarray(b)))
     wantc = np.asarray(a.todense()) @ b
     assert_close(c, wantc, factor=256, abs_floor=1e-2)

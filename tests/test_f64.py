@@ -1,4 +1,4 @@
-"""double-precision policy tests (VERDICT r2 missing #2).
+"""double-precision policy tests.
 
 The reference templates every algorithm over ``double``
 (include/spblas/views/csr_view.hpp:12-16; test/gtest/util.hpp:7-23's
@@ -6,7 +6,7 @@ tolerance model handles doubles).  Policy here:
 
   * x64 disabled (jax default): container constructors WARN loudly (or
     raise under SPBLAS_STRICT_DTYPE=1) instead of silently narrowing.
-  * x64 enabled: the CPU/XLA base paths run genuinely in f64 and the
+  * x64 enabled: every path runs genuinely in f64 and the
     f64 oracle suites below hold at f64 tolerances (64*eps_f64 —
     ~1e-14 relative, unreachable by an f32 path).
 """
@@ -144,98 +144,60 @@ def test_f64_add_transpose_scaled(x64):
 
 
 # ------------------------------------------------------------------ #
-# x64-mode tracing of the f32 Pallas kernels (round 5)
+# x64-mode tracing of f32 problems
 # ------------------------------------------------------------------ #
-# Mosaic rejects i64 anywhere the TPU kernels put a scalar: weak
-# Python-int roll shifts become i64 ('tpu.dynamic_rotate' operand must
-# be i32) and BlockSpec index-map int constants become i64 constants
-# whose func.return fails to legalize.  Both were found by the round-5
-# spmv_f64 bench section, whose f32 comparison leg runs with x64
-# globally on.  Fix: kernels pin static shifts to np.int32, and every
-# Pallas dispatch traces under types.no_x64.  The tests assert the
-# strong invariant: tracing a dispatch with x64 ON yields NO i64 aval
-# anywhere in the jaxpr.
+# With x64 on, an f32 problem must stay f32 end to end: Python scalars
+# and index arithmetic may widen, but no float64 value may appear on the
+# numeric path (it would double the bytes moved and change results).
 
 
 def _all_dtypes(jaxpr, out):
     """Collect aval dtypes of every var in every eqn, recursing through
-    call/pallas/scan subjaxprs."""
+    sub-jaxprs."""
     for eqn in jaxpr.eqns:
         for v in list(eqn.invars) + list(eqn.outvars):
             if hasattr(v.aval, "dtype"):
                 out.append(v.aval.dtype)
-        for p in eqn.params.values():
-            inner = getattr(p, "jaxpr", p)
-            if hasattr(inner, "eqns"):
-                _all_dtypes(inner, out)
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            _all_dtypes(sub, out)
     return out
 
 
-def test_dia_pallas_no_i64_under_x64(x64):
-    from spblas_tpu.kernels.dia import build_dia_plan, _dia_spmv_pallas
+def test_dia_f32_under_x64(x64):
+    """f32 DIA SpMV traced with x64 on holds no float64 value and keeps
+    f32 numerics."""
+    from spblas_tpu.kernels.dia import build_dia_plan, dia_spmv
 
-    # tridiagonal => off+pad_lo = 0,1,2: nonzero r takes the roll path
     a = gen.generate_banded_csr(512, 512, 3, seed=0)
     plan = build_dia_plan(a)
-    assert any((off + 1) % 128 for off in plan.offsets)
     x = jnp.ones((512,), jnp.float32)
-    jaxpr = jax.make_jaxpr(lambda v: _dia_spmv_pallas(plan, v))(x)
+    jaxpr = jax.make_jaxpr(lambda v: dia_spmv(plan, v))(x)
     dts = _all_dtypes(jaxpr.jaxpr, [])
-    assert dts and not any(d == jnp.int64 for d in dts)
-
-    # numerics unchanged under x64 (interpret mode on CPU; the kernel
-    # itself is f32, so f32 tolerances apply even with x64 on)
-    y = _dia_spmv_pallas(plan, x)
+    assert dts and not any(d == jnp.float64 for d in dts)
+    y = dia_spmv(plan, x)
+    assert y.dtype == jnp.float32
     np.testing.assert_allclose(np.asarray(y, np.float64),
                                dense_from_csr(a) @ np.ones(512),
                                rtol=1e-5, atol=1e-5)
 
 
-def _find_pallas_eqns(jaxpr, out):
-    for eqn in jaxpr.eqns:
-        if eqn.primitive.name == "pallas_call":
-            out.append(eqn)
-        for p in eqn.params.values():
-            inner = getattr(p, "jaxpr", p)
-            if hasattr(inner, "eqns"):
-                _find_pallas_eqns(inner, out)
-    return out
+def test_sell_bsr_f32_under_x64(x64):
+    """Same invariant over the SELL plan and the BSR block kernel."""
+    from spblas_tpu.formats.bsr import BSR
+    from spblas_tpu.kernels.bsr import bsr_spmv
+    from spblas_tpu.kernels.sell import build_sell_plan, sell_spmv
 
+    g = gen.generate_csr(1024, 1024, 8000, seed=2)
+    splan = build_sell_plan(g)
+    xr = jnp.ones((1024,), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda v: sell_spmv(splan, v))(xr)
+    assert not any(d == jnp.float64 for d in _all_dtypes(jaxpr.jaxpr, []))
+    assert sell_spmv(splan, xr).dtype == jnp.float32
 
-def _assert_pallas_i32(jaxpr):
-    """Every pallas_call in the traced program: index maps return only
-    i32, and the kernel jaxpr holds no i64 aval (Mosaic's contract)."""
-    eqns = _find_pallas_eqns(jaxpr, [])
-    assert eqns, "expected at least one pallas_call"
-    for e in eqns:
-        for bm in e.params["grid_mapping"].block_mappings:
-            outs = [v.aval.dtype for v in bm.index_map_jaxpr.jaxpr.outvars]
-            assert all(d == jnp.int32 for d in outs), outs
-        kdts = _all_dtypes(e.params["jaxpr"], [])
-        assert not any(d == jnp.int64 for d in kdts)
-
-
-def test_band_route_pallas_no_i64_under_x64(x64):
-    """Same invariant over the band + ROUTE dispatches, which carry
-    Python-int BlockSpec index-map constants (the func.return class);
-    their XLA glue outside the kernel may legally use i64 under x64,
-    so the check scopes to what Mosaic actually compiles."""
-    from spblas_tpu.kernels.banded import build_band_plan, band_spmv
-    from spblas_tpu.kernels.route_plan import build_route_plan
-    from spblas_tpu.kernels.route_spmv import route_spmv
-
-    a = gen.generate_banded_csr(2048, 2048, 9, seed=1)
-    bplan = build_band_plan(a)
-    x = jnp.ones((2048,), jnp.float32)
-    jaxpr = jax.make_jaxpr(
-        lambda v: band_spmv(bplan, v, interpret=True))(x)
-    _assert_pallas_i32(jaxpr.jaxpr)
-
-    g = gen.generate_csr(4096, 4096, 40_000, seed=2)
-    rplan = build_route_plan(
-        np.asarray(g.rowptr, np.int64), np.asarray(g.colind, np.int64),
-        np.asarray(g.values), g.shape, int(g.nnz))
-    xr = jnp.ones((4096,), jnp.float32)
-    jaxpr = jax.make_jaxpr(
-        lambda v: route_spmv(rplan, v, interpret=True))(xr)
-    _assert_pallas_i32(jaxpr.jaxpr)
+    dense = np.zeros((64, 256), np.float32)
+    dense[8:24, 128:] = 1.0
+    b = BSR.from_dense(dense, (8, 128))
+    xb = jnp.ones((256,), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda v: bsr_spmv(b, v))(xb)
+    assert not any(d == jnp.float64 for d in _all_dtypes(jaxpr.jaxpr, []))
+    np.testing.assert_allclose(np.asarray(bsr_spmv(b, xb)), dense @ np.ones(256))

@@ -147,75 +147,38 @@ def test_interop_scipy_roundtrip():
                                np.asarray(a.todense()))
 
 
-def test_mul_expand_matches_numpy_reference():
-    """Native fused expansion stream == the numpy argsort formulation
-    (ops/spgemm._try_build_route fallback), including the 4-arg D tail
-    (const-1 A slot, b_cap+t B slots)."""
-    from spblas_tpu import native
-    if native.get_lib() is None:
-        pytest.skip("native library unavailable")
-    rng = np.random.default_rng(0)
-    for trial, (m, k, n, annz, bnnz, dnnz) in enumerate(
-            [(40, 30, 35, 200, 180, 0), (25, 25, 25, 120, 120, 60)]):
-        import scipy.sparse as sp
-        A = sp.random(m, k, density=annz / (m * k), format="csr",
-                      random_state=rng, dtype=np.float32)
-        B = sp.random(k, n, density=bnnz / (k * n), format="csr",
-                      random_state=rng, dtype=np.float32)
-        D = (sp.random(m, n, density=dnnz / (m * n), format="csr",
-                       random_state=rng, dtype=np.float32)
-             if dnnz else None)
-        a_rp = A.indptr.astype(np.int64)
-        a_ci = A.indices.astype(np.int64)
-        b_rp = B.indptr.astype(np.int64)
-        b_ci = B.indices.astype(np.int64)
-        a_cap, b_cap = A.nnz + 3, B.nnz + 5
-        # numpy reference (the fallback path, verbatim)
-        rows_a = np.repeat(np.arange(m, dtype=np.int64), np.diff(a_rp))
-        cnt = b_rp[a_ci + 1] - b_rp[a_ci]
-        total = int(cnt.sum())
-        sa = np.repeat(np.arange(A.nnz, dtype=np.int64), cnt)
-        off = np.concatenate([[0], np.cumsum(cnt)])
-        sb = (np.arange(total, dtype=np.int64)
-              - np.repeat(off[:-1], cnt) + np.repeat(b_rp[a_ci], cnt))
-        rows = np.repeat(rows_a, cnt)
-        cols = b_ci[sb]
-        d_nnz = int(D.nnz) if D is not None else 0
-        if D is not None:
-            d_rp = D.indptr.astype(np.int64)
-            d_ci = D.indices.astype(np.int64)
-            rows = np.concatenate(
-                [rows, np.repeat(np.arange(m, dtype=np.int64),
-                                 np.diff(d_rp))])
-            cols = np.concatenate([cols, d_ci])
-            sa = np.concatenate([sa, np.full(d_nnz, a_cap, np.int64)])
-            sb = np.concatenate(
-                [sb, b_cap + np.arange(d_nnz, dtype=np.int64)])
-        else:
-            d_rp = d_ci = None
-        order = np.argsort(rows * np.int64(n) + cols, kind="stable")
-        rows, cols, sa, sb = (rows[order], cols[order], sa[order],
-                              sb[order])
-        head = np.empty(len(rows), bool)
-        head[0] = True
-        head[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
-        slots_ref = np.cumsum(head) - 1
-        nat = native.mul_expand(
-            m, A.nnz, a_rp, a_ci.astype(np.int32), B.nnz, b_rp,
-            b_ci.astype(np.int32), d_nnz, d_rp, d_ci, a_cap, b_cap,
-            total + d_nnz)
-        assert nat is not None
-        slots_n, sa_n, sb_n, nnz_n = nat
-        np.testing.assert_array_equal(slots_n, slots_ref)
-        np.testing.assert_array_equal(sa_n, sa)
-        np.testing.assert_array_equal(sb_n, sb)
-        assert nnz_n == int(slots_ref[-1]) + 1
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("unit", [True, False])
+def test_level_schedule_native_matches_fallback(monkeypatch, lower, unit):
+    """The C++ level scheduler and its numpy fallback agree on levels,
+    diagonal positions and level count."""
+    from spblas_tpu.utils.generate import generate_triangular_csr
+    a = generate_triangular_csr(300, seed=21, lower=lower, density=0.03)
+    nnz = int(a.nnz)
+    rp = np.asarray(a.rowptr).astype(np.int64)
+    ci = np.asarray(a.colind)
+    want = native.level_schedule(300, nnz, rp, ci, lower, unit)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    got = native.level_schedule(300, nnz, rp, ci, lower, unit)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]
+
+
+def test_native_build_uses_committed_sources():
+    """The library builds from the sources in the package and nothing
+    else (no stale source list)."""
+    import os
+    for src in (native._SRC, native._SRC2):
+        assert os.path.exists(src), src
+    assert sorted(os.listdir(os.path.dirname(native._SRC))) == sorted(
+        os.path.basename(s) for s in (native._SRC, native._SRC2))
 
 
 class TestSortUtil:
-    """Round-4 threaded host primitives (native/src/sort_util.cpp):
-    each must match its numpy reference expression exactly (the plan
-    builders rely on bit-identical stable ordering)."""
+    """Threaded host sort (native/src/sort_util.cpp): must match its
+    numpy reference exactly (the symbolic phase relies on stable
+    ordering)."""
 
     def test_argsort_matches_numpy_stable(self):
         rng = np.random.default_rng(11)
@@ -237,71 +200,11 @@ class TestSortUtil:
         np.testing.assert_array_equal(order,
                                       np.argsort(key, kind="stable"))
 
-    def test_route2_keys_matches_expression(self):
-        rng = np.random.default_rng(13)
-        rows = rng.integers(0, 1 << 20, 50_000)
-        cols = rng.integers(0, 1 << 21, 50_000)
-        rw_bits, w_bits = 13, 14
-        ncellc = (int(cols.max()) >> w_bits) + 1
-        lvl = rng.integers(0, 64, 50_000)
-        for lv, mult in ((None, 0), (lvl, 977)):
-            key = native.route2_keys(rows, cols, rw_bits, w_bits,
-                                     ncellc, lvl=lv, lvl_mult=mult)
-            if key is None:
-                pytest.skip("native library unavailable")
-            cell = (rows >> rw_bits) * ncellc + (cols >> w_bits)
-            if lv is not None:
-                cell = cell + lv * mult
-            ref = ((cell << (15 + rw_bits))
-                   | ((rows & ((1 << rw_bits) - 1)) << 15)
-                   | (cols & ((1 << w_bits) - 1)))
-            np.testing.assert_array_equal(key, ref)
-
-    def test_fill_group_tiles_with_spill(self):
-        rng = np.random.default_rng(14)
-        ng, ne = 37, 20_000
-        pairs = rng.permutation(ng * 1024)[:ne]
-        eg = (pairs // 1024).astype(np.int32)
-        es = (pairs % 1024).astype(np.int32)
-        vv = rng.random(ne).astype(np.float32)
-        ee = rng.integers(-1, 500, ne)
-        sp = rng.permutation(ne)[:321].astype(np.int32)
-        out = native.fill_group_tiles(ng, eg, es, vv, ee, spill_idx=sp)
-        if out is None:
-            pytest.skip("native library unavailable")
-        vt, st = out
-        keep = np.ones(ne, bool)
-        keep[sp] = False
-        vt_ref = np.zeros((ng, 8, 128), np.float32)
-        st_ref = np.full((ng, 8, 128), -1, np.int32)
-        vt_ref[eg[keep], es[keep] >> 7, es[keep] & 127] = vv[keep]
-        st_ref[eg[keep], es[keep] >> 7, es[keep] & 127] = \
-            np.where(ee[keep] >= 0, ee[keep], -1)
-        np.testing.assert_array_equal(vt, vt_ref)
-        np.testing.assert_array_equal(st, st_ref)
-
-    def test_gathers_and_expand(self):
-        rng = np.random.default_rng(15)
-        idx = rng.integers(0, 999, 4321).astype(np.int32)
-        f = rng.random(999).astype(np.float32)
-        i = rng.integers(0, 1 << 40, 999)
-        t = rng.integers(0, 1 << 30, (999, 8, 128)).astype(np.int32)
-        if native.gather(idx, f) is None:
-            pytest.skip("native library unavailable")
-        np.testing.assert_array_equal(native.gather(idx, f), f[idx])
-        np.testing.assert_array_equal(native.gather(idx, i), i[idx])
-        np.testing.assert_array_equal(native.gather(idx, t), t[idx])
-        gp = np.array([5, -1, 0, 998, -1], np.int32)
-        fill = np.full((8, 128), -9, np.int32)
-        ref = t[np.maximum(gp, 0)].copy()
-        ref[gp < 0] = fill
-        np.testing.assert_array_equal(
-            native.gather_tiles_fill(gp, t, fill), ref)
-        rp = np.concatenate([[0], np.cumsum(rng.integers(0, 9, 500))])
-        nnz = int(rp[-1])
-        np.testing.assert_array_equal(
-            native.expand_rowptr(500, nnz, rp),
-            np.repeat(np.arange(500), np.diff(rp)))
+    def test_argsort_empty_and_single(self):
+        for key in (np.zeros(0, np.int64), np.array([42], np.int64)):
+            order, sk = native.argsort_i64(key)
+            np.testing.assert_array_equal(order, np.arange(len(key)))
+            np.testing.assert_array_equal(sk, key)
 
 
 class TestReviewHardening:
@@ -350,13 +253,3 @@ class TestReviewHardening:
         gather, cols, valid, w = native.ell_geometry(
             3, 3, 0, np.zeros(4, np.int64), np.zeros(0, np.int32))
         assert not valid.any() and cols.shape == gather.shape
-
-    def test_gather_tiles_fill_itemsize_guard(self):
-        if native.get_lib() is None:
-            pytest.skip("native library unavailable")
-        # f64 tiles are 8192 B; the 4096-B native memcpy must refuse
-        # (None -> caller's numpy fallback), not return garbage
-        t = np.arange(2 * 8 * 128, dtype=np.float64).reshape(2, 8, 128)
-        fill = np.zeros((8, 128), np.float64)
-        assert native.gather_tiles_fill(
-            np.array([0, 1], np.int32), t, fill) is None

@@ -210,13 +210,13 @@ def test_dist_triangular_solve(mesh, uplo):
     assert residual < 1e-4
 
 
-def test_dist_route_spmv_matches_dense():
-    """Per-shard ROUTE2 plans under shard_map (unstructured distributed
-    SpMV) — uniform, power-law and rectangular patterns."""
+def test_dist_unstructured_spmv_matches_dense():
+    """Unstructured distributed SpMV (generic gather blocks, both
+    strategies) — uniform, power-law and rectangular patterns."""
     import numpy as np
     import jax.numpy as jnp
-    from spblas_tpu.parallel import (make_row_mesh, partition_route,
-                                     dist_route_spmv)
+    from spblas_tpu.parallel import (dist_spmv, make_row_mesh,
+                                     partition_csr, partition_vector)
     from spblas_tpu.utils.generate import generate_csr, generate_rmat_csr
     from tests.util import assert_close, dense_from_csr
 
@@ -224,37 +224,30 @@ def test_dist_route_spmv_matches_dense():
     for a in (generate_csr(4096, 4096, 40000, seed=1),
               generate_rmat_csr(4096, 4096 * 8, seed=2),
               generate_csr(3000, 2000, 20000, seed=3)):
-        plan = partition_route(a, mesh)
+        d = partition_csr(a, mesh)
         m, n = a.shape
         x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
-        xp = jnp.pad(jnp.asarray(x), (0, plan.p * plan.nloc - n))
-        y = np.asarray(dist_route_spmv(plan, xp, mesh))[:m]
-        assert_close(y, dense_from_csr(a) @ x, abs_floor=1e-2)
+        xp = partition_vector(jnp.asarray(x), d, mesh)
+        for strategy in ("ring", "allgather"):
+            y = np.asarray(dist_spmv(d, xp, mesh, strategy))[:m]
+            assert_close(y, dense_from_csr(a) @ x, abs_floor=1e-2)
 
 
-def test_dist_route_spmv_publish_gate_crossing():
-    """Round-3 regression class: per-shard plans built with a publish
-    geometry the stacked dispatch didn't know about — wrong values on
-    every gate-crossing shard (VERDICT r3 #1; originally the any-lane
-    flag, round 4 added supercells with the same threading contract).
-    This matrix is starved enough that the common gate trips (round 4:
-    supercells take precedence over any-lane), so the test fails
-    loudly if either flag is dropped anywhere on the path again."""
-    from spblas_tpu.parallel import (make_row_mesh, partition_route,
-                                     dist_route_spmv)
+def test_dist_spmv_starved_matrix():
+    """A starved matrix (most row blocks hold a handful of entries, many
+    blocks none) through the distributed gather blocks."""
+    from spblas_tpu.parallel import (dist_spmv, make_row_mesh,
+                                     partition_csr, partition_vector)
     from spblas_tpu.utils.generate import generate_csr
     from tests.util import assert_close, dense_from_csr
 
     mesh = make_row_mesh(8)
     a = generate_csr(16384, 16384, 8192, seed=7)
-    plan = partition_route(a, mesh)
-    assert plan.row_window_mult > 1 or plan.any_lane, (
-        "fixture no longer crosses any publish gate; pick a sparser "
-        "matrix so the regression stays covered")
+    d = partition_csr(a, mesh)
     m, n = a.shape
     x = np.random.default_rng(2).standard_normal(n).astype(np.float32)
-    xp = jnp.pad(jnp.asarray(x), (0, plan.p * plan.nloc - n))
-    y = np.asarray(dist_route_spmv(plan, xp, mesh))[:m]
+    xp = partition_vector(jnp.asarray(x), d, mesh)
+    y = np.asarray(dist_spmv(d, xp, mesh, "allgather"))[:m]
     assert_close(y, dense_from_csr(a) @ x, abs_floor=1e-2)
 
 
@@ -282,11 +275,9 @@ def test_dist_sell_spmm_matches_dense():
 
 
 def test_partition_spmv_chooser_selects_and_matches():
-    """VERDICT r3 #7: the distributed chooser must route banded
-    patterns to the halo band pipeline and unstructured ones to the
-    per-shard ROUTE2 fast path on TPU (forced here via ``prefer``
-    since the test mesh is CPU), with the generic gather blocks only
-    as the CPU default — all against the dense oracle."""
+    """The distributed matvec chooser: banded patterns on request ride
+    the halo band pipeline, and the default is the generic gather
+    blocks — all against the dense oracle."""
     from spblas_tpu.parallel import (dist_plan_spmv, make_row_mesh,
                                      partition_spmv,
                                      partition_spmv_vector)
@@ -295,16 +286,17 @@ def test_partition_spmv_chooser_selects_and_matches():
 
     mesh = make_row_mesh(8)
     cases = [
-        (generate_csr(2048, 2048, 16000, seed=11), "route"),
+        (generate_csr(2048, 2048, 16000, seed=11), "csr"),
         (generate_banded_csr(2048, 2048, 9, seed=12), "band"),
-        (generate_csr(2048, 2048, 16000, seed=11), None),  # CPU auto
+        (generate_csr(2048, 2048, 16000, seed=11), None),  # default
     ]
     for a, prefer in cases:
-        kind, plan = partition_spmv(a, mesh, prefer=prefer)
-        if prefer is not None:
-            assert kind == prefer
+        if prefer is None:
+            kind, plan = partition_spmv(a, mesh)
+            assert kind == "csr", "the default is the generic path"
         else:
-            assert kind == "csr", "CPU auto must take the generic path"
+            kind, plan = partition_spmv(a, mesh, prefer=prefer)
+            assert kind == prefer
         m, n = a.shape
         x = np.random.default_rng(4).standard_normal(n).astype(
             np.float32)
@@ -314,10 +306,10 @@ def test_partition_spmv_chooser_selects_and_matches():
 
 
 def test_partition_spmm_chooser_selects_and_matches():
-    """SpMM analogue of the distributed matvec chooser (round 4): band
-    patterns ride the halo pipeline, unstructured ones the per-shard
-    SELL buckets (forced via ``prefer`` on the CPU mesh), and CPU auto
-    takes the generic gather blocks — all against the dense oracle."""
+    """SpMM analogue of the distributed matvec chooser: band patterns
+    ride the halo pipeline and unstructured ones the per-shard SELL
+    buckets on request, and the default takes the generic gather blocks
+    — all against the dense oracle."""
     from spblas_tpu.parallel import (dist_plan_spmm, make_row_mesh,
                                      partition_spmm,
                                      partition_spmm_operand)
@@ -329,14 +321,15 @@ def test_partition_spmm_chooser_selects_and_matches():
     cases = [
         (generate_csr(2048, 2048, 16000, seed=21), "sell"),
         (generate_banded_csr(2048, 2048, 9, seed=22), "band"),
-        (generate_csr(2048, 2048, 16000, seed=21), None),  # CPU auto
+        (generate_csr(2048, 2048, 16000, seed=21), None),  # default
     ]
     for a, prefer in cases:
-        kind, plan = partition_spmm(a, mesh, prefer=prefer)
-        if prefer is not None:
-            assert kind == prefer
+        if prefer is None:
+            kind, plan = partition_spmm(a, mesh)
+            assert kind == "csr", "the default is the generic path"
         else:
-            assert kind == "csr", "CPU auto must take the generic path"
+            kind, plan = partition_spmm(a, mesh, prefer=prefer)
+            assert kind == prefer
         m, n = a.shape
         B = np.random.default_rng(5).standard_normal((n, k)).astype(
             np.float32)
@@ -345,23 +338,44 @@ def test_partition_spmm_chooser_selects_and_matches():
         assert_close(C, dense_from_csr(a) @ B, abs_floor=1e-2)
 
 
-def test_dist_spmm_warns_on_tpu(monkeypatch):
-    """dist_spmm must steer users to the chooser on TPU the same way
-    dist_spmv does (VERDICT r3 #7)."""
-    import warnings
-    import spblas_tpu.types as _t
-    from spblas_tpu.parallel import (dist_spmm, make_row_mesh,
-                                     partition_csr, partition_vector)
+def test_dist_choosers_reject_unknown_kind():
+    """The distributed choosers name their kinds; anything else raises
+    (the ROUTE kind no longer exists)."""
+    from spblas_tpu.parallel import (make_row_mesh, partition_spmm,
+                                     partition_spmv)
     from spblas_tpu.utils.generate import generate_csr
 
     mesh = make_row_mesh(8)
     a = generate_csr(256, 256, 2000, seed=3)
-    rb = partition_csr(a, mesh)
-    B = np.random.default_rng(6).standard_normal((256, 4)).astype(
+    with pytest.raises(ValueError):
+        partition_spmv(a, mesh, prefer="route")
+    with pytest.raises(ValueError):
+        partition_spmm(a, mesh, prefer="route")
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_dist_band_sweep_devices(p, op):
+    """The halo band pipeline (jnp panel sweep + ppermute edges) on 1,
+    2, 4 and 8 devices against the dense oracle."""
+    from spblas_tpu.parallel import (dist_band_spmm, dist_band_spmv,
+                                     make_row_mesh, partition_band,
+                                     partition_band_vector)
+    from spblas_tpu.utils.generate import generate_banded_csr
+    from tests.util import assert_close, dense_from_csr
+
+    mesh = make_row_mesh(p)
+    m = 1500
+    a = generate_banded_csr(m, m, 41, seed=40 + p)
+    plan = partition_band(a, mesh)
+    assert plan.p == p and plan.mloc % 128 == 0
+    assert plan.width == 128 + 2 * 20
+    rng = np.random.default_rng(p)
+    v = rng.standard_normal((m,) if op == "spmv" else (m, 3)).astype(
         np.float32)
-    Bp = partition_vector(B, rb, mesh)
-    monkeypatch.setattr(_t, "on_tpu", lambda: True)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        dist_spmm(rb, Bp, mesh)
-    assert any("dist_spmm" in str(x.message) for x in w)
+    vd = partition_band_vector(jnp.asarray(v), plan, mesh)
+    fn = dist_band_spmv if op == "spmv" else dist_band_spmm
+    y = np.asarray(fn(plan, vd, mesh))
+    assert y.shape[0] == p * plan.mloc
+    assert_close(y[:m], dense_from_csr(a) @ v, abs_floor=1e-3)
+    assert not np.abs(y[m:]).any()

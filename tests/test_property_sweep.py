@@ -67,20 +67,17 @@ def test_sweep_trsv(seed, uplo):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_sweep_opt_plan_paths(seed, monkeypatch):
-    """Sweep the TPU plan chooser across pattern families: every
-    (pattern, op) pair must route through its cached plan and match the
-    dense oracle (route/route1/sell/band/band_perm selection under a
-    faked TPU)."""
+def test_sweep_opt_plan_paths(seed):
+    """Sweep the plan chooser across pattern families: every (pattern,
+    op) pair must route through its cached plan and match the dense
+    oracle (sell / dia selection)."""
     import jax.numpy as jnp
-    from spblas_tpu.kernels import plans as _plans
 
-    monkeypatch.setattr(_plans, "_on_tpu", lambda: True)
     rng = np.random.default_rng(seed)
     cases = [
-        gen.generate_csr(1500, 1500, 9000, seed=seed),          # route
-        gen.generate_rmat_csr(1024, 1024 * 16, seed=seed),      # route1
-        gen.generate_banded_csr(640, 640, 7, seed=seed),        # band
+        gen.generate_csr(1500, 1500, 9000, seed=seed),          # sell
+        gen.generate_rmat_csr(1024, 1024 * 16, seed=seed),      # sell
+        gen.generate_banded_csr(640, 640, 7, seed=seed),        # dia
         gen.generate_csr(900, 700, 5000, seed=seed + 7),        # rect
     ]
     for a in cases:

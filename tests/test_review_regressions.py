@@ -32,11 +32,10 @@ def test_scaled_inside_and_outside_conjugation():
                                atol=1e-5 * scale)
 
 
-def test_wide_matrix_band_plan_no_crash(monkeypatch):
-    """Wide matrices (n >> m) must not crash the band kernel with a
+def test_wide_matrix_band_plan_no_crash():
+    """Wide matrices (n >> m) must not crash the chosen plan with a
     negative pad."""
     from spblas_tpu.kernels import plans
-    monkeypatch.setattr(plans, "_on_tpu", lambda: True)
     rng = np.random.default_rng(4)
     dense = np.zeros((128, 4096), np.float32)
     dense[:, :128] = rng.standard_normal((128, 128))
@@ -67,10 +66,10 @@ def test_spgemm_chunked_honors_conjugation():
 
 def test_bsr_spgemm_empty_product():
     from spblas_tpu.formats.bsr import BSR
-    from spblas_tpu.kernels.bsr_spgemm import bsr_spgemm
+    from spblas_tpu.kernels.bsr import bsr_spgemm
     za = BSR.from_dense(np.zeros((32, 256), np.float32), (8, 128))
     zb = BSR.from_dense(np.zeros((256, 256), np.float32), (128, 128))
-    c = bsr_spgemm(za, zb, interpret=True)
+    c = bsr_spgemm(za, zb)
     assert int(c.nnz_blocks) == 0
     np.testing.assert_array_equal(np.asarray(c.todense()), 0)
 

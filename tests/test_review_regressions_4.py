@@ -1,5 +1,6 @@
 """Round-4 review regressions (distributed batch): mesh-size guards,
-chooser dtype gate, flag validation, scalar promotion, dtype parity."""
+chooser dtype handling, flag validation, scalar promotion, dtype
+parity."""
 
 import dataclasses
 
@@ -10,11 +11,11 @@ import jax
 import jax.numpy as jnp
 
 from spblas_tpu.parallel import (dist_add, dist_band_spmv,
-                                 dist_plan_spmv, dist_route_spmv,
-                                 dist_spmv, dist_triangular_solve_inspect,
+                                 dist_sell_spmm, dist_spmv,
+                                 dist_triangular_solve_inspect,
                                  make_row_mesh, partition_band,
                                  partition_band_vector, partition_csr,
-                                 partition_route, partition_rowblock,
+                                 partition_rowblock, partition_sell,
                                  partition_spmm, partition_spmv,
                                  partition_vector)
 from spblas_tpu.utils import generate as gen
@@ -31,10 +32,10 @@ def test_mesh_size_mismatch_raises():
     x8 = partition_vector(jnp.ones((64,), jnp.float32), d, mesh8)
     with pytest.raises(ValueError, match="partitioned for p=8"):
         dist_spmv(d, x8, mesh4)
-    rp = partition_route(a, mesh8)
+    sp8 = partition_sell(a, mesh8)
     with pytest.raises(ValueError, match="partitioned for p=8"):
-        dist_route_spmv(rp, jnp.ones((rp.p * rp.nloc,), jnp.float32),
-                        mesh4)
+        dist_sell_spmm(sp8, jnp.ones((sp8.p * sp8.nloc, 2), jnp.float32),
+                       mesh4)
     ab = gen.generate_banded_csr(1024, 1024, 5, seed=1)
     bp = partition_band(ab, mesh8)
     xb = partition_band_vector(jnp.ones((1024,), jnp.float32), bp, mesh8)
@@ -46,16 +47,9 @@ def test_mesh_size_mismatch_raises():
         dist_add(ar8, ar4, mesh8)
 
 
-def test_dist_chooser_dtype_gate(monkeypatch):
-    """complex64/f64 matrices must take the dtype-preserving gather
-    blocks, not the f32 band/route/sell shard kernels."""
-    import spblas_tpu.parallel.spmv as dspmv
-    monkeypatch.setattr(
-        "spblas_tpu.parallel.spmv.on_tpu", lambda: True, raising=False)
-    # partition_spmv imports on_tpu inside the function; patch the
-    # source module instead
-    from spblas_tpu import types as _t
-    monkeypatch.setattr(_t, "on_tpu", lambda: True)
+def test_dist_chooser_dtype_gate():
+    """complex64 matrices take the dtype-preserving gather blocks by
+    default and come out numerically right."""
     mesh = make_row_mesh(8)
     a = gen.generate_csr(256, 256, 2000, seed=2)
     rng = np.random.default_rng(3)
@@ -85,15 +79,14 @@ def test_dist_trsv_rejects_bad_diag():
 
 
 def test_dist_band_output_dtype_matches_serial():
-    """The chooser's band and route kinds must agree on output dtype
-    (band returned raw f32 regardless of operand dtype)."""
+    """The band kind promotes like the single-device plans:
+    result_type(panels, x), so a bf16 operand gives f32."""
     mesh = make_row_mesh(8)
     ab = gen.generate_banded_csr(1024, 1024, 5, seed=5)
     bp = partition_band(ab, mesh)
     xb = partition_band_vector(
         jnp.ones((1024,), jnp.bfloat16), bp, mesh)
     y = dist_band_spmv(bp, xb, mesh)
-    # single-device band_spmv promotes to result_type(panels, x) = f32
     assert y.dtype == jnp.float32
 
 

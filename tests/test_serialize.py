@@ -60,35 +60,41 @@ def test_spgemm_plan_roundtrip(tmp_path):
 
 
 def test_permuted_band_plan_roundtrip(tmp_path):
-    """Nested plan dataclasses flatten/rebuild through save/load."""
-    from spblas_tpu.kernels.banded import (build_permuted_band_plan,
-                                           permuted_band_spmv)
-    a = generate_banded_csr(200, 200, 9, seed=12)
-    plan = build_permuted_band_plan(a)
-    p = str(tmp_path / "pband.npz")
+    """A SellPlan holds a TUPLE of bucket dataclasses: each flattens per
+    index and the reloaded plan applies identically."""
+    from spblas_tpu.kernels.sell import build_sell_plan, sell_spmv
+    from spblas_tpu.utils.generate import generate_rmat_csr
+    a = generate_rmat_csr(512, 512 * 8, seed=12)
+    plan = build_sell_plan(a)
+    assert len(plan.buckets) > 3, "fixture must span several buckets"
+    p = str(tmp_path / "sell.npz")
     save_plan(p, plan)
     plan2 = load_plan(p)
-    x = generate_vector(200, seed=13)
-    import jax.numpy as jnp
-    y1 = permuted_band_spmv(plan, jnp.asarray(x), interpret=True)
-    y2 = permuted_band_spmv(plan2, jnp.asarray(x), interpret=True)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2))
+    assert len(plan2.buckets) == len(plan.buckets)
+    x = generate_vector(512, seed=13)
+    np.testing.assert_array_equal(np.asarray(sell_spmv(plan2, x)),
+                                  np.asarray(sell_spmv(plan, x)))
 
 
 def test_band_and_bsr_spgemm_plan_roundtrip(tmp_path):
-    from spblas_tpu.kernels.banded import build_band_plan, band_spmv
-    from spblas_tpu.kernels.bsr_spgemm import bsr_spgemm_compute
     from spblas_tpu.formats.bsr import BSR
+    from spblas_tpu.kernels.bsr import bsr_spgemm_compute
+    from spblas_tpu.parallel import (dist_band_spmv, make_row_mesh,
+                                     partition_band, partition_band_vector)
     import jax.numpy as jnp
-    a = generate_banded_csr(256, 256, 7, seed=14)
-    plan = build_band_plan(a)
+    mesh = make_row_mesh(2)
+    a = generate_banded_csr(512, 512, 7, seed=14)
+    plan = partition_band(a, mesh)
     p = str(tmp_path / "band.npz")
     save_plan(p, plan)
     plan2 = load_plan(p)
-    x = generate_vector(256, seed=15)
+    assert (plan2.h, plan2.mloc, plan2.shape) == (plan.h, plan.mloc,
+                                                  plan.shape)
+    x = partition_band_vector(jnp.asarray(generate_vector(512, seed=15)),
+                              plan, mesh)
     np.testing.assert_allclose(
-        np.asarray(band_spmv(plan, jnp.asarray(x), interpret=True)),
-        np.asarray(band_spmv(plan2, jnp.asarray(x), interpret=True)))
+        np.asarray(dist_band_spmv(plan, x, mesh)),
+        np.asarray(dist_band_spmv(plan2, x, mesh)))
     rng = np.random.default_rng(16)
     da = np.zeros((32, 256), np.float32)
     da[:8, :128] = rng.standard_normal((8, 128))
@@ -101,127 +107,70 @@ def test_band_and_bsr_spgemm_plan_roundtrip(tmp_path):
     bplan2 = load_plan(p2)
     np.testing.assert_array_equal(np.asarray(bplan2.pair_a),
                                   np.asarray(bplan.pair_a))
+    assert bplan2.nnzb_c == bplan.nnzb_c
 
 
-def test_trsv_plan_with_route_roundtrip(tmp_path, monkeypatch):
-    """A route-bearing TrsvPlan serializes; the baked-values identity
-    token does not survive the round trip, so the loaded plan falls
-    back to the (values-correct) ragged sweep."""
-    import numpy as np
-    import spblas_tpu as sp
-    from spblas_tpu.utils.generate import generate_triangular_csr
-    from spblas_tpu.utils.serialize import save_plan, load_plan
-
-    import dataclasses
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
-    L = generate_triangular_csr(600, seed=11, lower=True)
-    info = sp.triangular_solve_inspect(L, uplo="lower")
-    assert info.plan.route is not None
-    path = tmp_path / "trsv_plan.npz"
-    save_plan(str(path), info.plan)
-    plan2 = load_plan(str(path))
-    b = np.random.default_rng(0).standard_normal(600).astype(np.float32)
-
-    info2 = dataclasses.replace(info, plan=plan2)
-    x = np.asarray(sp.triangular_solve(L, b, uplo="lower", info=info2))
-    want = np.asarray(
-        sp.triangular_solve(L, b, uplo="lower", info=info))
-    np.testing.assert_allclose(x, want, rtol=1e-5, atol=1e-5)
-
-
-def test_paned_plan_round_trip(tmp_path):
-    """RoutePanedPlan holds a TUPLE of panel dataclasses — the round-4
-    tuple support must flatten them per index and execute identically
-    after reload (checkpoint/resume contract, SURVEY §5.4)."""
-    import numpy as np
-    from spblas_tpu.kernels.route_paned import (build_route_paned_plan,
-                                                route_paned_spmv)
-    from spblas_tpu.utils.generate import generate_csr_arrays
-    from spblas_tpu.utils.serialize import save_plan, load_plan
-
-    m = 40_000
-    values, rowptr, colind = generate_csr_arrays(m, m, 10 * m, seed=9)
-    nnz = int(rowptr[-1])
-    plan = build_route_paned_plan(rowptr, colind, values, (m, m), nnz,
-                                  panel_rows=16384, pane_rows=8192)
-    path = tmp_path / "paned.npz"
-    save_plan(str(path), plan)
-    plan2 = load_plan(str(path))
-    assert len(plan2.panels) == len(plan.panels)
-    assert plan2.row_window_mult == plan.row_window_mult
-    x = np.random.default_rng(1).standard_normal(m).astype(np.float32)
-    y1 = np.asarray(route_paned_spmv(plan, x))[:m]
-    y2 = np.asarray(route_paned_spmv(plan2, x))[:m]
-    np.testing.assert_array_equal(y1, y2)
+def test_dist_sell_plan_roundtrip(tmp_path):
+    """DistSellPlan holds tuples of bucket ARRAYS (one '/i' entry
+    each)."""
+    import jax.numpy as jnp
+    from spblas_tpu.parallel import dist_sell_spmm, make_row_mesh, \
+        partition_sell
+    mesh = make_row_mesh(2)
+    a = generate_csr(256, 256, 2000, seed=17)
+    plan = partition_sell(a, mesh)
+    p = str(tmp_path / "dsell.npz")
+    save_plan(p, plan)
+    plan2 = load_plan(p)
+    assert len(plan2.bucket_values) == len(plan.bucket_values)
+    b = jnp.asarray(np.random.default_rng(18).standard_normal(
+        (plan.p * plan.nloc, 3)).astype(np.float32))
+    np.testing.assert_array_equal(
+        np.asarray(dist_sell_spmm(plan2, b, mesh)),
+        np.asarray(dist_sell_spmm(plan, b, mesh)))
 
 
 def test_load_plan_missing_static_fields_use_defaults(tmp_path):
-    """Plans saved before new static fields existed must load with the
-    dataclass defaults (the versioning contract in Route2Plan's
-    any_lane/row_window_mult field comments).  Round-4 regression:
-    _rebuild KeyError'd on any missing static key."""
+    """Plans saved before a static field existed load with the
+    dataclass default: _rebuild must not KeyError on a missing static
+    key."""
     import json
-    from spblas_tpu.kernels.route2 import build_route2_plan
-    from spblas_tpu.kernels.route2_kernel import route2_spmv
-    import jax.numpy as jnp
-
-    a = generate_csr(300, 300, 2000, seed=11)
-    plan = build_route2_plan(np.asarray(a.rowptr), np.asarray(a.colind),
-                             np.asarray(a.values), (300, 300),
-                             int(a.nnz))
-    # the fixture must genuinely pack at the legacy geometry, else
-    # stripping the keys below would change semantics, not just format
-    assert plan.row_window_mult == 1 and not plan.has_hub \
-        and not plan.any_lane
-    p = str(tmp_path / "r2.npz")
-    save_plan(p, plan)
-    # simulate a pre-round-4 file: strip the round-4 static keys
+    a = generate_csr(60, 60, 400, seed=11)
+    info = sp.multiply_compute(a, a)
+    assert info.plan.has_d is False
+    p = str(tmp_path / "spgemm_old.npz")
+    save_plan(p, info.plan)
     with np.load(p, allow_pickle=False) as z:
         payload = {k: z[k] for k in z.files}
     static = json.loads(str(payload["__static__"]))
-    for k in ("row_window_mult", "has_hub", "any_lane", "dist_max"):
-        static.pop(k, None)
+    static.pop("has_d")
     payload["__static__"] = np.str_(json.dumps(static))
     np.savez(p, **payload)
     plan2 = load_plan(p)
-    assert plan2.row_window_mult == 1 and not plan2.has_hub \
-        and not plan2.any_lane and plan2.dist_max == 7
-    x = generate_vector(300, seed=12)
-    # defaults must also be semantically right for a legacy plan:
-    # the fixture packs with ww=1/no hub, so the apply matches
-    np.testing.assert_allclose(
-        np.asarray(route2_spmv(plan2.update_values(a.values),
-                               jnp.asarray(np.asarray(x)))),
-        np.asarray(route2_spmv(plan, jnp.asarray(np.asarray(x)))),
-        rtol=1e-5, atol=1e-5)
+    assert plan2.has_d is False
+    c1 = sp.multiply_fill(info, a, a)
+    c2 = sp.multiply_fill(info.update(plan=plan2), a, a)
+    np.testing.assert_array_equal(np.asarray(c1.values),
+                                  np.asarray(c2.values))
 
 
-def test_dist_spgemm_engine_plan_roundtrip(tmp_path, monkeypatch):
-    """DistSpgemmPlan with the stacked mul engine (round 5): nested
-    DistMulEngine/DistMulPanel tuples must survive the npz round-trip
-    and keep producing oracle-correct numerics."""
-
-
-    import numpy as np
+def test_dist_spgemm_engine_plan_roundtrip(tmp_path):
+    """DistSpgemmPlan survives the npz round-trip and keeps producing
+    oracle-correct numerics (reloaded arrays land unsharded; shard_map
+    re-shards on entry)."""
     from spblas_tpu.parallel import (assemble_csr, dist_spgemm_compute,
                                      dist_spgemm_numeric, make_row_mesh,
                                      partition_rowblock)
-    from spblas_tpu.utils.generate import generate_csr
-    from spblas_tpu.utils.serialize import load_plan, save_plan
     from tests.util import assert_close
 
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_SPGEMM", "1")
     mesh = make_row_mesh(8)
     a = generate_csr(64, 64, 500, seed=21)
     ar = partition_rowblock(a, mesh)
     plan = dist_spgemm_compute(ar, ar, mesh)
-    assert plan.engine is not None
     path = str(tmp_path / "dist_mul.npz")
     save_plan(path, plan)
     back = load_plan(path)
-    assert back.engine is not None
-    assert len(back.engine.panels) == len(plan.engine.panels)
-    # reloaded arrays land unsharded; shard_map re-shards on entry
+    assert back.result_nnz == plan.result_nnz
     c = assemble_csr(dist_spgemm_numeric(back, ar, ar, mesh))
     expected = np.asarray(a.todense()) @ np.asarray(a.todense())
     assert_close(np.asarray(c.todense()), expected, factor=256)

@@ -1,6 +1,7 @@
 """SpTRSV tests — mirrors test/gtest/triangular_solve_test.cpp:
 lower/upper triangle, explicit/implicit-unit diagonal, plus the
-level-schedule inspector-executor split (new TPU capability)."""
+level-schedule inspector-executor split (a capability the reference
+leaves to vendors)."""
 
 import numpy as np
 import pytest
@@ -86,7 +87,7 @@ def test_trsv_bad_args():
 
 def test_trsv_skewed_triangle_plan_memory():
     """One dense row must cost O(its nnz), not (levels x rows x width)
-    (round-1 VERDICT weak #3: the padded plan inflated multiplicatively)."""
+    (the first padded plan inflated multiplicatively)."""
     import numpy as np
     import spblas_tpu as sp
     from spblas_tpu.formats.csr import CSR
@@ -139,76 +140,56 @@ def test_trsv_skewed_triangle_plan_memory():
                                atol=2e-3)
 
 
-def test_route_solve_one_dispatch(monkeypatch):
-    """The one-dispatch ROUTE2 substitution (plan.route) matches the
-    ragged level sweep and the dense oracle, including the baked-values
-    identity guard (changed values fall back to the sweep)."""
+def test_level_sweep_matches_scipy():
+    """The ragged level sweep matches scipy, including a reused info
+    with changed values (same structure)."""
     import dataclasses
     import numpy as np
-    import jax.numpy as jnp
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spl
     import spblas_tpu as sp
     from spblas_tpu.utils.generate import generate_triangular_csr
     from tests.util import assert_close
 
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
     L = generate_triangular_csr(3000, seed=7, lower=True)
     info = sp.triangular_solve_inspect(L, uplo="lower")
-    assert info.plan.route is not None
     rng = np.random.default_rng(2)
     b = rng.standard_normal(3000).astype(np.float32)
     x = np.asarray(sp.triangular_solve(L, b, uplo="lower", info=info))
-    import scipy.sparse as sps
-    import scipy.sparse.linalg as spl
     nnz = int(L.nnz)
     A = sps.csr_matrix((np.asarray(L.values)[:nnz],
                         np.asarray(L.colind)[:nnz],
                         np.asarray(L.rowptr)), shape=(3000, 3000))
     ref = spl.spsolve_triangular(A, b, lower=True)
     assert_close(x, ref, factor=256, abs_floor=1e-4)
-
-    # changed values with the same structure: identity guard must route
-    # to the (values-correct) ragged sweep, not the stale baked plan
     L2 = dataclasses.replace(L, values=L.values * 2.0)
     x2 = np.asarray(sp.triangular_solve(L2, b, uplo="lower", info=info))
     assert_close(x2, ref / 2.0, factor=256, abs_floor=1e-4)
 
 
-def test_route_solve_values_refresh_stays_on_route(monkeypatch):
-    """inspect -> solve -> perturb values -> solve stays on the
-    one-dispatch route path (on-device coefficient re-bake, the
-    rocSPARSE numeric-reuse contract) and matches scipy — VERDICT r2
-    next-6.  The ragged sweep must NOT be taken for concrete values."""
+def test_solve_values_refresh_reuses_info():
+    """inspect -> solve -> perturb values -> solve with the same info
+    matches scipy (the rocSPARSE numeric-reuse contract), for explicit
+    and unit diagonals."""
     import dataclasses
+    import jax.numpy as jnp
     import numpy as np
     import scipy.sparse as sps
     import scipy.sparse.linalg as spl
-    import importlib
     import spblas_tpu as sp
-    ts_mod = importlib.import_module("spblas_tpu.ops.triangular_solve")
     from spblas_tpu.utils.generate import generate_triangular_csr
     from tests.util import assert_close
 
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
     m = 3000
     L = generate_triangular_csr(m, seed=7, lower=True)
     info = sp.triangular_solve_inspect(L, uplo="lower")
-    assert info.plan.route is not None
-    assert info.plan.route_dpe is not None
-
-    def boom(*a, **k):
-        raise AssertionError("values change dropped to the ragged sweep")
-
-    monkeypatch.setattr(ts_mod, "_trsv_execute", boom)
     rng = np.random.default_rng(3)
     b = rng.standard_normal(m).astype(np.float32)
-    # perturbed values (same sparsity) — not a scalar multiple, so a
-    # stale baked plan cannot accidentally pass
     nnz = int(L.nnz)
     pert = (1.0 + 0.1 * rng.standard_normal(nnz)).astype(np.float32)
     new_vals = np.asarray(L.values).copy()
     new_vals[:nnz] *= pert
-    L2 = dataclasses.replace(L, values=__import__("jax").numpy.asarray(
-        new_vals))
+    L2 = dataclasses.replace(L, values=jnp.asarray(new_vals))
     x2 = np.asarray(sp.triangular_solve(L2, b, uplo="lower", info=info))
     A2 = sps.csr_matrix((new_vals[:nnz], np.asarray(L.colind)[:nnz],
                          np.asarray(L.rowptr)), shape=(m, m))
@@ -216,15 +197,12 @@ def test_route_solve_values_refresh_stays_on_route(monkeypatch):
     assert_close(x2, ref2, factor=256,
                  abs_floor=3e-5 * float(np.abs(ref2).max()))
 
-    # unit-diagonal variant exercises the dpe=None re-bake
     Lu = generate_triangular_csr(m, seed=9, lower=True, unit_diag=True)
     info_u = sp.triangular_solve_inspect(Lu, uplo="lower", diag="unit")
-    assert info_u.plan.route is not None
     nnz_u = int(Lu.nnz)
     vals_u = np.asarray(Lu.values).copy()
     vals_u[:nnz_u] *= 0.5
-    Lu2 = dataclasses.replace(Lu, values=__import__("jax").numpy.asarray(
-        vals_u))
+    Lu2 = dataclasses.replace(Lu, values=jnp.asarray(vals_u))
     xu = np.asarray(sp.triangular_solve(Lu2, b, uplo="lower", diag="unit",
                                         info=info_u))
     Au = sps.csr_matrix((vals_u[:nnz_u], np.asarray(Lu.colind)[:nnz_u],
@@ -235,19 +213,16 @@ def test_route_solve_values_refresh_stays_on_route(monkeypatch):
                  abs_floor=3e-5 * float(np.abs(ref_u).max()))
 
 
-def test_route_solve_grad_falls_back(monkeypatch):
-    """jax.grad through a route-bearing plan must fall back to the
-    differentiable ragged sweep (the one-dispatch kernel has no VJP)."""
+def test_solve_grad_with_info():
+    """jax.grad through a solve with a precomputed info."""
     import numpy as np
     import jax
     import jax.numpy as jnp
     import spblas_tpu as sp
     from spblas_tpu.utils.generate import generate_triangular_csr
 
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
     L = generate_triangular_csr(300, seed=5, lower=True)
     info = sp.triangular_solve_inspect(L, uplo="lower")
-    assert info.plan.route is not None
     b = jnp.asarray(
         np.random.default_rng(1).standard_normal(300).astype(np.float32))
 
@@ -256,7 +231,6 @@ def test_route_solve_grad_falls_back(monkeypatch):
         return jnp.sum(x * x)
 
     g = jax.grad(loss)(b)
-    # finite-difference spot check
     e = jnp.zeros_like(b).at[7].set(1e-3)
     fd = (loss(b + e) - loss(b - e)) / 2e-3
     assert np.isfinite(np.asarray(g)).all()
@@ -264,52 +238,30 @@ def test_route_solve_grad_falls_back(monkeypatch):
                                atol=1e-3)
 
 
-def test_deep_level_chain_route_solve(monkeypatch):
-    """Round-4 envelope lift: a 625-level chain solve on the ROUTE
-    substitution path (the old gate refused > 4096 levels; the builder
-    now batches non-hub levels into one native pack call and the
-    executor chains dispatches past the SMEM chunk budget)."""
+@pytest.mark.parametrize("uplo", ["lower", "upper"])
+def test_deep_level_chain_solve(uplo):
+    """A 625-level dependency chain through the ragged sweep, lower and
+    (via the transpose) upper."""
     import numpy as np
     import jax.numpy as jnp
+    import scipy.sparse as sps
+    from spblas_tpu.formats.csr import CSR
     from spblas_tpu.ops.triangular_solve import (
         triangular_solve, triangular_solve_inspect)
     from spblas_tpu.utils.generate import generate_block_chain_lower
-    from tests.util import dense_from_csr
 
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
     m = 40_000
     L = generate_block_chain_lower(m, block=64, deg=4, seed=3)
-    info = triangular_solve_inspect(L, uplo="lower")
+    nnz = int(L.nnz)
+    A = sps.csr_matrix((np.asarray(L.values)[:nnz],
+                        np.array(L.colind)[:nnz], np.asarray(L.rowptr)),
+                       shape=(m, m))
+    if uplo == "upper":
+        A = A.T.tocsr()
+        L = CSR.from_arrays(A.data, A.indptr, A.indices, (m, m))
+    info = triangular_solve_inspect(L, uplo=uplo)
     assert info.plan.num_levels == m // 64
-    assert info.plan.route is not None, "deep chain must stay on route"
     b = np.random.default_rng(1).standard_normal(m).astype(np.float32)
-    x = np.asarray(triangular_solve(L, jnp.asarray(b), uplo="lower",
+    x = np.asarray(triangular_solve(L, jnp.asarray(b), uplo=uplo,
                                     info=info))
-    res = np.abs(dense_from_csr(L) @ x - b).max()
-    assert res < 1e-3
-
-
-def test_solve_dispatch_chaining(monkeypatch):
-    """Chunk streams past _SOLVE_CHUNKS_PER_DISPATCH split into chained
-    dispatches over the same pane — force a tiny budget so the split
-    itself is exercised on a small solve."""
-    import numpy as np
-    import jax.numpy as jnp
-    from spblas_tpu.kernels import route2_kernel as rk
-    from spblas_tpu.ops.triangular_solve import (
-        triangular_solve, triangular_solve_inspect)
-    from spblas_tpu.utils.generate import generate_block_chain_lower
-    from tests.util import dense_from_csr
-
-    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_TRSV", "1")
-    monkeypatch.setattr(rk, "_SOLVE_CHUNKS_PER_DISPATCH", 16)
-    m = 4_096
-    L = generate_block_chain_lower(m, block=64, deg=4, seed=4)
-    info = triangular_solve_inspect(L, uplo="lower")
-    assert info.plan.route is not None
-    assert info.plan.route.nchunks > 16, "fixture must exceed the budget"
-    b = np.random.default_rng(2).standard_normal(m).astype(np.float32)
-    x = np.asarray(triangular_solve(L, jnp.asarray(b), uplo="lower",
-                                    info=info))
-    res = np.abs(dense_from_csr(L) @ x - b).max()
-    assert res < 1e-3
+    assert np.abs(A @ x - b).max() < 1e-3
